@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU and checks it.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 chip_smoke.py                  # every phase; exits 0 only if all pass
+    python3 chip_smoke.py --only kernel    # build + the kernel cases only
+
+It prints one JSON object per line, one line per phase:
+
+  device   the card, its power limit (nvidia-smi), torch and CUDA versions
+  build    seconds to compile the CUDA kernels from csrc/ (nvcc, sm_90a)
+  kernel   one line per case: the CUDA kernel against its plain PyTorch
+           version on the same inputs (max_err within tol), with kernel_ms,
+           plain_ms and library_ms (torch's scaled_dot_product_attention on
+           the same inputs, a yardstick the port never calls) from CUDA
+           events, each launch after an L2 flush, and bound_ms: the larger of
+           bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16, 67
+           TFLOP/s fp32), from the shapes and masks of the case
+  parity   llama3.2-3b widths in float32, depth cut to 2: the kernel path
+           against the plain path on the same weights (max abs logit error
+           <= 2e-3); at depth 28 the same two paths, and the plain path with
+           another block size, side by side (the random model is chaotic)
+  serve    the main path: repro_torch.launch.serve.main at the published
+           llama3.2-3b config (28 layers, bf16) on fresh seeded weights,
+           with each kernel's launches counted from zero
+  profile  torch.profiler over one prefill and three decode steps of the
+           same model: wall, host-enqueue and device ms, the device's idle
+           share, kernel launches, and the kernels that take the most time
+  store    llama3.2-3b widths cut to 2 layers: a full commit to a mirrored
+           FileBlade, restored from the primary and from the mirror, serving
+           the same greedy tokens as the weights held in memory
+  kernels  every kernel of the path: launches in the serve phase, and the
+           numbers of its main-path case
+
+The last line is {"ok": true, "device": {...}}.  Any failure raises and the
+script exits non-zero without it.  It also exits non-zero, printing nothing,
+when no CUDA device is available or src/repro_torch is not beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("build", "kernel", "parity", "serve", "profile", "store")
+HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}                 # tests/test_kernels.py:19-20
+RTOL = 1e-2
+LLAMA = dict(B=4, Hq=24, Hkv=8, D=128)                     # llama3.2-3b attention widths
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class Timer:
+    """Median device time of one call, each call after an L2 flush (the
+    serving path finds each layer's K/V cold: 7 GB of weights pass between
+    two visits).  The flush also keeps the card busy while the host enqueues
+    the call, so the events time the device, not the host."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn, iters: int = 10) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+
+def flash_case(torch, timer, name, *, B, Hq, Hkv, Sq, Sk, D, dtype, causal=True, window=None):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(Sq * 7 + Sk)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Hq, Sq, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Hkv, Sk, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Hkv, Sk, D), generator=g, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
+    out = fa.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs()
+    ok = bool((err <= TOL[dtype] + RTOL * want.float().abs()).all())
+
+    # what this run's masks need: the visible (query, key) pairs, and the
+    # key rows any query sees
+    qpos = np.arange(Sq) + Sk - Sq
+    hi = np.minimum(qpos + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    pairs = int(np.clip(hi - lo, 0, None).sum())
+    keys = int(hi.max() - lo.min())
+    item = torch.finfo(dt).bits // 8
+    nbytes = item * (2 * B * Hq * Sq * D + 2 * B * Hkv * keys * D)
+    bound_ms, bound_by = bound(nbytes, 4.0 * B * Hq * D * pairs, dtype)
+
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    qp = torch.arange(Sq, device="cuda")[:, None] + Sk - Sq
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    plain_causal = causal and window is None and Sq == Sk
+    lib = (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)) if plain_causal else (
+        lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True))
+    line = {"phase": "kernel", "kernel": "flash_attention", "case": name, "dtype": dtype,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Sk": Sk, "D": D},
+            "causal": causal, "window": window, "q_offset": Sk - Sq,
+            "max_err": float(err.max()), "tol": {"atol": TOL[dtype], "rtol": RTOL}, "ok": ok,
+            "kernel_ms": timer(lambda: fa.flash_attention(q, k, v, **kw)),
+            "plain_ms": timer(lambda: ref.flash_attention_reference(q, k, v, **kw)),
+            "library_ms": timer(lib),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": 4.0 * B * Hq * D * pairs}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"flash_attention case {name}: max_err {line['max_err']}")
+    return line
+
+
+def decode_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype, lengths):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(S + sum(lengths))
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Hq, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(dt)
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = da.decode_attention(q, k, v, length=length)
+    want = ref.decode_attention_reference(q, k, v, length=length)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs()
+    ok = bool((err <= TOL[dtype] + RTOL * want.float().abs()).all())
+
+    live = int(sum(min(n, S) for n in lengths))  # only the live cache is needed
+    item = torch.finfo(dt).bits // 8
+    nbytes = item * (2 * B * Hq * D + 2 * Hkv * D * live) + 4 * B
+    flops = 4.0 * Hq * D * live
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    mask = (torch.arange(S, device="cuda")[None, :] < length[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    line = {"phase": "kernel", "kernel": "decode_attention", "case": name, "dtype": dtype,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D}, "lengths": lengths,
+            "max_err": float(err.max()), "tol": {"atol": TOL[dtype], "rtol": RTOL}, "ok": ok,
+            "kernel_ms": timer(lambda: da.decode_attention(q, k, v, length=length)),
+            "plain_ms": timer(lambda: ref.decode_attention_reference(q, k, v, length=length)),
+            "library_ms": timer(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask,
+                                             enable_gqa=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"decode_attention case {name}: max_err {line['max_err']}")
+    return line
+
+
+def phase_kernels(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "kernel", "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+    timer = Timer(torch)
+    lines = {}
+    lines["flash"] = flash_case(torch, timer, "llama3.2-3b prefill", Sq=1024, Sk=1024,
+                                dtype="bfloat16", **LLAMA)
+    flash_case(torch, timer, "llama3.2-3b prefill fp32", Sq=1024, Sk=1024, dtype="float32",
+               **LLAMA)
+    flash_case(torch, timer, "window 128", Sq=1024, Sk=1024, dtype="bfloat16", window=128,
+               **LLAMA)
+    flash_case(torch, timer, "qwen1.5-0.5b prefill (MHA, D=64)", B=4, Hq=16, Hkv=16, Sq=1024,
+               Sk=1024, D=64, dtype="bfloat16")
+    flash_case(torch, timer, "ragged Sk, q_offset", Sq=200, Sk=1000, dtype="bfloat16", **LLAMA)
+    lengths = [1025, 1056, 1040, 1031]
+    lines["decode"] = decode_case(torch, timer, "llama3.2-3b decode, cache 32768", S=32768,
+                                  dtype="bfloat16", lengths=lengths, **LLAMA)
+    decode_case(torch, timer, "llama3.2-3b decode fp32, cache 32768", S=32768,
+                dtype="float32", lengths=lengths, **LLAMA)
+    del timer
+    torch.cuda.empty_cache()
+    return lines
+
+
+def phase_parity(torch):
+    """Kernel path against plain path on the same full-width float32 weights.
+
+    The bound holds at depth 2.  Deeper, this randomly initialised model is
+    chaotic: the JAX fan-in rule puts the attention logits at a std of ~220,
+    so near-ties amplify any change of summation order.  Changing only the
+    plain path's block_k moves the depth-28 logits as much as the kernels do,
+    and both are reported.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, 128256, (2, 260), generator=g, device="cuda")
+
+    def run(cfg, params, **over):
+        model = DecoderLM(dataclasses.replace(cfg, **over))
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, {"tokens": toks[:, :256]})
+            outs = [logits]
+            for t in range(256, 260):
+                logits, cache = model.decode_step(params, cache, toks[:, t])
+                outs.append(logits)
+            del cache
+            return torch.stack(outs).float()
+
+    line = {"phase": "parity", "arch": "llama3.2-3b", "dtype": "float32", "batch": 2,
+            "prompt": 256, "decode_steps": 4, "tol": 2e-3}
+    for layers in (2, 28):
+        cfg = dataclasses.replace(get_config("llama3.2-3b"), dtype="float32", n_layers=layers)
+        params = DecoderLM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+        got, want = run(cfg, params, attn_impl="cuda"), run(cfg, params, attn_impl="torch")
+        finite = bool(torch.isfinite(got).all())
+        if layers == 2:
+            line.update(layers=2, cut="depth 28 -> 2; widths as published",
+                        max_abs_logit_err=float((got - want).abs().max()), finite=finite,
+                        logit_absmax=float(want.abs().max()))
+        else:
+            other = run(cfg, params, attn_impl="torch", attn_block_k=64)
+            line["depth_28"] = {"kernel_vs_plain": float((got - want).abs().max()),
+                                "plain_vs_plain_block_k_64": float((other - want).abs().max()),
+                                "finite": finite}
+            del other
+        del params, got, want
+        torch.cuda.empty_cache()
+    emit(line)
+    if not (line["max_abs_logit_err"] <= 2e-3 and line["finite"] and line["depth_28"]["finite"]):
+        raise AssertionError(f"parity: {line}")
+
+
+def phase_serve(torch):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+
+    requests, max_new, layers = 3, 32, 28
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    da.launches = 0
+    stats = serve.main(["--arch", "llama3.2-3b", "--full", "--batch", "4", "--prompt-len", "1024",
+                        "--max-new", str(max_new), "--requests", str(requests)])
+    launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
+    steady = slice(1, None)  # the first request also loads the kernels and cuBLAS
+    line = {"phase": "serve", "arch": "llama3.2-3b", "layers": layers, "dtype": "bfloat16",
+            "batch": 4, "prompt_len": 1024, "max_new": max_new, "requests": requests,
+            "prefill_ms": [s * 1e3 for s in stats["prefill_s"]],
+            "decode_ms_per_step": [s * 1e3 / n for s, n in zip(stats["decode_s"],
+                                                              stats["decode_steps"])],
+            "steady_prefill_ms": float(np.median([s * 1e3 for s in stats["prefill_s"][steady]])),
+            "steady_decode_ms_per_step": float(np.median(
+                [s * 1e3 / n for s, n in zip(stats["decode_s"][steady],
+                                              stats["decode_steps"][steady])])),
+            "tokens": stats["tokens"], "seconds": stats["seconds"],
+            "tokens_per_s": stats["tokens"] / stats["seconds"],
+            "logits_finite": stats["logits_finite"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches}
+    emit(line)
+    want = {"flash_attention": layers * requests, "decode_attention": layers * max_new * requests}
+    if launches != want or not stats["logits_finite"]:
+        raise AssertionError(f"serve: launches {launches}, want {want}; "
+                             f"finite {stats['logits_finite']}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_profile(torch):
+    """Where a request's time goes: one prefill and three decode steps of
+    the published llama3.2-3b under torch.profiler, after a warm-up.  Device
+    time is the sum of kernel times (one stream, so they do not overlap);
+    the rest of the wall time the card is idle, waiting for the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+
+    cfg = get_config("llama3.2-3b")
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 1024), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(4))
+    line = {"phase": "profile", "arch": "llama3.2-3b", "batch": 4, "prompt_len": 1024}
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": toks})
+        nxt = logits.argmax(-1)
+        for _ in range(3):
+            logits, cache = model.decode_step(params, cache, nxt)
+            nxt = logits.argmax(-1)
+        for name, steps in (("prefill", 1), ("decode_step", 3)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    if name == "prefill":
+                        logits, cache = model.prefill(params, {"tokens": toks})
+                    else:
+                        logits, cache = model.decode_step(params, cache, nxt)
+                    nxt = logits.argmax(-1)
+                enqueue = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = prof.key_averages()
+            dev = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 / steps
+                   for e in events if getattr(e, "self_device_time_total", 0.0) > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA}
+            launches = sum(e.count for e in events
+                           if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+            device_ms = sum(dev.values())
+            top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+            line[name] = {"wall_ms": wall * 1e3 / steps, "host_enqueue_ms": enqueue * 1e3 / steps,
+                          "device_ms": device_ms,
+                          "device_idle_share": max(0.0, 1 - device_ms / (wall * 1e3 / steps)),
+                          "kernel_launches": launches / steps,
+                          "top_device_ms": [[k[:60], v] for k, v in top]}
+        del cache
+    emit(line)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_store(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2)
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(2))
+    scfg = ServeConfig(batch_slots=2, max_new_tokens=8)
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    want, _ = ServeEngine(model, params, scfg).generate(prompts)
+    with tempfile.TemporaryDirectory() as tmp:
+        primary, mirror = os.path.join(tmp, "primary"), os.path.join(tmp, "mirror")
+        t0 = time.perf_counter()
+        CheckpointManager(AsymStore(FileBlade(primary, mirrors=[mirror]))).save_full(
+            1, {"params": params})
+        commit_s = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in Path(primary, "data").iterdir())
+        restore_s, same = {}, {}
+        for name, path in (("primary", primary), ("mirror", mirror)):
+            t0 = time.perf_counter()
+            eng = ServeEngine.load_from_store(model, CheckpointManager(AsymStore(FileBlade(path))),
+                                              scfg)
+            torch.cuda.synchronize()
+            restore_s[name] = time.perf_counter() - t0
+            got, stats = eng.generate(prompts)
+            same[name] = bool(np.array_equal(got, want)) and stats["version"] == 1
+            del eng
+    line = {"phase": "store", "arch": "llama3.2-3b", "n_layers": 2,
+            "cut": "depth 28 -> 2 layers; widths as published", "dtype": "bfloat16",
+            "bytes": nbytes, "commit_s": commit_s, "restore_s": restore_s,
+            "same_tokens": same}
+    emit(line)
+    del params
+    torch.cuda.empty_cache()
+    if not all(same.values()):
+        raise AssertionError(f"store: tokens differ {same}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help=f"comma-separated phases of {PHASES}; all by default")
+    args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(PHASES):
+        ap.error(f"--only takes phases of {PHASES}")
+
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
+        return 1
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    emit({"phase": "device", **device, "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    build_s = _build.build()
+    regs = {}
+    for name in _build.SOURCES:
+        log = (_build.BUILD_DIR / f"{name}.log")
+        if log.exists():
+            regs[name] = [ln.strip() for ln in log.read_text().splitlines()
+                          if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": build_s, "ptxas": regs})
+
+    cases = phase_kernels(torch) if "kernel" in only else None
+    if "parity" in only:
+        phase_parity(torch)
+    launches = phase_serve(torch) if "serve" in only else None
+    if "profile" in only:
+        phase_profile(torch)
+    if "store" in only:
+        phase_store(torch)
+    if cases is None or launches is None:
+        return 0  # a partial run checks what it ran and claims nothing more
+
+    kernels = []
+    for key, name, replaces in (
+            ("flash", "flash_attention", "src/repro/kernels/flash_attention.py:91"),
+            ("decode", "decode_attention", "src/repro/kernels/decode_attention.py:70")):
+        c = cases[key]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": c["max_err"], "ms": c["kernel_ms"],
+                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                        "checked": True})
+    if not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError(f"a kernel of the main path never launched: {kernels}")
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": device})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,44 @@
+"""Public kernel entry points with backend dispatch.
+
+Models call these; the implementation is selected by `impl`:
+
+  * "cuda"  — the hand-written CUDA kernels (raises on a CPU tensor);
+  * "torch" — the plain PyTorch versions (``ref.py``), on any device;
+  * "auto"  — "cuda" for CUDA tensors, "torch" for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import decode_attention as _decode
+from . import flash_attention as _flash
+from . import ref
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+def _resolve(impl: str, x: torch.Tensor) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if impl == "auto":
+        return "cuda" if x.is_cuda else "torch"
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got a tensor on {x.device}")
+    return impl
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
+                    q_offset=0, impl="auto", block_k=512):
+    if _resolve(impl, q) == "torch":
+        return ref.flash_attention_reference(
+            q, k, v, causal=causal, window=window, sm_scale=sm_scale,
+            q_offset=q_offset, block_k=block_k)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  sm_scale=sm_scale, q_offset=q_offset)
+
+
+def decode_attention(q, k, v, *, length=None, sm_scale=None, impl="auto"):
+    if _resolve(impl, q) == "torch":
+        return ref.decode_attention_reference(q, k, v, sm_scale=sm_scale, length=length)
+    return _decode.decode_attention(q, k, v, length=length, sm_scale=sm_scale)

@@ -1,0 +1,1 @@
+"""Entry points: the serving CLI (``python -m repro_torch.launch.serve``)."""

@@ -1,0 +1,118 @@
+"""Serving engine: batched prefill + decode with slot-based batching.
+
+Readers of the asymmetric store: the engine pins a committed version
+(`load_from_store`) while training keeps committing new ones — the SWMR
+pattern of paper §9 — and can hot-reload to a newer version between
+generations.
+
+Batching model: fixed decode slots; a `generate` call admits up to
+`batch_slots` equal-length prompts, prefill fills the cache, then all
+slots decode in lock-step with per-sequence EOS masking.  The engine runs
+on the card unless it is given ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.model import DecoderLM
+from ..statestore import CheckpointManager
+from ..tree import tree_map
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    batch_slots: int = 8
+    max_new_tokens: int = 32
+    eos_id: int = -1            # <0: never stop early
+    greedy: bool = True
+    temperature: float = 1.0
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    def __init__(self, model: DecoderLM, params, cfg: ServeConfig, device=None):
+        self.model = model
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.version: Optional[int] = None
+
+    # ----------------------------------------------------------- store reads
+    @classmethod
+    def load_from_store(cls, model: DecoderLM, ckpt: CheckpointManager,
+                        cfg: ServeConfig, version: Optional[int] = None,
+                        device=None) -> "ServeEngine":
+        """Pin a committed version (params only) — a multi-version reader."""
+        device = resolve_device(device)
+        v, state = ckpt.restore({"params": model.abstract()}, version=version, device=device)
+        eng = cls(model, state["params"], cfg, device)
+        eng.version = v
+        return eng
+
+    def reload(self, ckpt: CheckpointManager, version: Optional[int] = None) -> int:
+        v, state = ckpt.restore({"params": self.model.abstract()}, version=version,
+                                device=self.device)
+        self.params, self.version = state["params"], v
+        return v
+
+    # -------------------------------------------------------------- generate
+    def generate(self, prompts: np.ndarray, generator: Optional[torch.Generator] = None
+                 ) -> Tuple[np.ndarray, Dict[str, Any]]:
+        """prompts: [B, S0] int (equal lengths; B <= batch_slots).
+        Returns (tokens [B, S0+max_new] int32, stats).  Greedy decoding takes
+        the first index of the largest logit; sampling draws from
+        `generator` (default: seed 0 on the engine's device).  stats holds
+        the host-clock seconds of prefill and of the decode loop, each
+        ending in a device synchronise, and whether every logit of the run
+        was finite."""
+        cfg = self.cfg
+        B, S0 = prompts.shape
+        if B > cfg.batch_slots:
+            raise ValueError(f"{B} prompts > {cfg.batch_slots} batch slots")
+        pad = cfg.batch_slots - B
+        if pad:
+            prompts = np.concatenate([prompts, np.zeros((pad, S0), prompts.dtype)], 0)
+        if not cfg.greedy and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
+            t0 = time.perf_counter()
+            logits, cache = self.model.prefill(self.params, {"tokens": toks})
+            finite = torch.isfinite(logits).all()
+            _sync(self.device)
+            t1 = time.perf_counter()
+            out = [toks]
+            done = torch.zeros((cfg.batch_slots,), dtype=torch.bool, device=self.device)
+            steps = 0
+            for _ in range(cfg.max_new_tokens):
+                if cfg.greedy:
+                    nxt = torch.argmax(logits, dim=-1)
+                else:
+                    probs = torch.softmax(logits.float() / cfg.temperature, dim=-1)
+                    nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+                if cfg.eos_id >= 0:
+                    nxt = torch.where(done, torch.full_like(nxt, cfg.eos_id), nxt)
+                    done = done | (nxt == cfg.eos_id)
+                out.append(nxt[:, None])
+                steps += 1
+                if cfg.eos_id >= 0 and bool(done.all()):
+                    break
+                logits, cache = self.model.decode_step(self.params, cache, nxt)
+                finite &= torch.isfinite(logits).all()
+            _sync(self.device)
+            t2 = time.perf_counter()
+            tokens = torch.cat(out, dim=1)[:B].to(torch.int32).cpu().numpy()
+        return tokens, {"decode_steps": steps, "version": self.version,
+                        "prefill_s": t1 - t0, "decode_s": t2 - t1,
+                        "logits_finite": bool(finite)}
