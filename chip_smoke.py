@@ -13,25 +13,32 @@ It prints one JSON object per line, one line per phase:
   kernel   one line per case: the CUDA kernel against its plain PyTorch
            version on the same inputs (max_err within tol), with kernel_ms,
            plain_ms and library_ms (torch's scaled_dot_product_attention on
-           the same inputs, a yardstick the port never calls) from CUDA
-           events, each launch after an L2 flush, and bound_ms: the larger of
+           the same inputs, a yardstick the port never calls; no single
+           torch call computes a scan, so theirs is null) from CUDA events,
+           each launch after an L2 flush, and bound_ms: the larger of
            bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16, 67
-           TFLOP/s fp32), from the shapes and masks of the case
-  parity   llama3.2-3b widths in float32, depth cut to 2: the kernel path
-           against the plain path on the same weights (max abs logit error
-           <= 2e-3); at depth 28 the same two paths, and the plain path with
-           another block size, side by side (the random model is chaotic)
-  serve    the main path: repro_torch.launch.serve.main at the published
-           llama3.2-3b config (28 layers, bf16) on fresh seeded weights,
-           with each kernel's launches counted from zero
-  profile  torch.profiler over one prefill and three decode steps of the
-           same model: wall, host-enqueue and device ms, the device's idle
-           share, kernel launches, and the kernels that take the most time
+           TFLOP/s fp32; the scans compute in fp32), from the shapes and
+           masks of the case
+  parity   the kernel path against the plain path on the same float32
+           weights at published widths (max abs logit error <= 2e-3):
+           llama3.2-3b cut to depth 2 (and at depth 28, beside the plain
+           path with another block size: the random model is chaotic),
+           falcon-mamba-7b cut to depth 2, recurrentgemma-9b cut to one
+           (rglru, rglru, local_attn) pattern with a prompt past its window
+  serve    the main path, once per model: repro_torch.launch.serve.main at
+           the published llama3.2-3b, falcon-mamba-7b and recurrentgemma-9b
+           configs (bf16) on fresh seeded weights, with each kernel's
+           launches counted from zero and held to their exact counts
+  profile  torch.profiler over one prefill and three decode steps of
+           llama3.2-3b and of recurrentgemma-9b: wall, host-enqueue and
+           device ms, the device's idle share, kernel launches, and the
+           kernels that take the most time
   store    llama3.2-3b widths cut to 2 layers: a full commit to a mirrored
            FileBlade, restored from the primary and from the mirror, serving
            the same greedy tokens as the weights held in memory
-  kernels  every kernel of the path: launches in the serve phase, and the
-           numbers of its main-path case
+  time     the seconds of the whole run, the kernels' build included
+  kernels  every kernel of the path: launches summed over the serve phase,
+           and the numbers of its main-path case
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
 script exits non-zero without it.  It also exits non-zero, printing nothing,
@@ -58,7 +65,9 @@ HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data shee
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}                 # tests/test_kernels.py:19-20
 RTOL = 1e-2
+SCAN_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (5e-4, 1e-3)}  # tests/test_kernels.py:79-80
 LLAMA = dict(B=4, Hq=24, Hkv=8, D=128)                     # llama3.2-3b attention widths
+RGEMMA = dict(B=4, Hq=16, Hkv=1, D=256)                    # recurrentgemma-9b local attention
 
 
 def emit(obj) -> None:
@@ -186,6 +195,77 @@ def decode_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype, lengths):
     return line
 
 
+def _scan_line(kernel, name, dtype, shape, got, want, timer, run, plain, nbytes, flops):
+    """The kernel line of a scan case: (y, hT) against the plain version's."""
+    atol, rtol = SCAN_TOL[dtype]
+    errs, ok = [], True
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs()
+        errs.append(float(err.max()))
+        ok = ok and bool((err <= atol + rtol * w.float().abs()).all())
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    line = {"phase": "kernel", "kernel": kernel, "case": name, "dtype": dtype, "shape": shape,
+            "max_err": max(errs), "max_err_y_hT": errs, "tol": {"atol": atol, "rtol": rtol},
+            "ok": ok, "kernel_ms": timer(run), "plain_ms": timer(plain, iters=3),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"{kernel} case {name}: max_err {errs}")
+    return line
+
+
+def rglru_case(torch, timer, name, *, B, S, D, dtype, with_h0=False):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rs
+
+    g = torch.Generator(device="cuda").manual_seed(S + D)
+    dt = getattr(torch, dtype)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    x, r, i = rn(B, S, D).to(dt), torch.sigmoid(rn(B, S, D)).to(dt), torch.sigmoid(rn(B, S, D)).to(dt)
+    log_a = -torch.exp(rn(D) * 0.3) * 0.1
+    h0 = rn(B, D) if with_h0 else None
+    got = rs.rglru_scan(x, r, i, log_a, h0)
+    want = ref.rglru_reference(x, r, i, log_a, h0)
+    torch.cuda.synchronize()
+    item = torch.finfo(dt).bits // 8
+    # x, r, i read and y written once; log_a, h0 read and hT written once
+    nbytes = item * 4 * B * S * D + 4 * D + 4 * B * D * (2 if with_h0 else 1)
+    flops = 12.0 * B * S * D  # c*r*log_a, 2 exp, sqrt, 1-, max, i*x, *, fma (2), 2*
+    return _scan_line("rglru_scan", name, dtype, {"B": B, "S": S, "D": D, "h0": with_h0},
+                      got, want, timer, lambda: rs.rglru_scan(x, r, i, log_a, h0),
+                      lambda: ref.rglru_reference(x, r, i, log_a, h0), nbytes, flops)
+
+
+def mamba_case(torch, timer, name, *, B, S, Din, N, dtype, with_h0=False):
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(S + Din + N)
+    dt = getattr(torch, dtype)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    x = rn(B, S, Din).to(dt)
+    delta = torch.nn.functional.softplus(rn(B, S, Din))
+    A = -torch.exp(rn(Din, N) * 0.5)
+    Bm, Cm = rn(B, S, N).to(dt), rn(B, S, N).to(dt)
+    D = rn(Din)
+    h0 = rn(B, Din, N) if with_h0 else None
+    args = (x, delta, A, Bm, Cm, D, h0)
+    got = ms.mamba_scan(*args)
+    want = ref.mamba_scan_reference(*args)
+    torch.cuda.synchronize()
+    item = torch.finfo(dt).bits // 8
+    # x, B, C read and y written in x's type; delta, A, D, h0 read and hT written in fp32
+    nbytes = (item * (2 * B * S * Din + 2 * B * S * N) + 4 * B * S * Din + 4 * Din * (N + 1)
+              + 4 * B * Din * N * (2 if with_h0 else 1))
+    # per state: dt*A, exp, dt*x*B, a*h + b (2), h*C + acc (2); per channel: dt*x, D*x + acc
+    flops = 7.0 * B * S * Din * N + 3.0 * B * S * Din
+    return _scan_line("mamba_scan", name, dtype,
+                      {"B": B, "S": S, "Din": Din, "N": N, "h0": with_h0}, got, want, timer,
+                      lambda: ms.mamba_scan(*args), lambda: ref.mamba_scan_reference(*args),
+                      nbytes, flops)
+
+
 def phase_kernels(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -207,50 +287,77 @@ def phase_kernels(torch):
                                   dtype="bfloat16", lengths=lengths, **LLAMA)
     decode_case(torch, timer, "llama3.2-3b decode fp32, cache 32768", S=32768,
                 dtype="float32", lengths=lengths, **LLAMA)
+    flash_case(torch, timer, "recurrentgemma-9b prefill (MQA, D=256)", Sq=3072, Sk=3072,
+               dtype="bfloat16", window=2048, **RGEMMA)
+    decode_case(torch, timer, "recurrentgemma-9b decode, ring 2048", S=2048, dtype="bfloat16",
+                lengths=[2048] * 4, **RGEMMA)
+    lines["rglru"] = rglru_case(torch, timer, "recurrentgemma-9b prefill", B=4, S=3072, D=4096,
+                                dtype="bfloat16")
+    rglru_case(torch, timer, "recurrentgemma-9b prefill fp32", B=4, S=3072, D=4096,
+               dtype="float32")
+    rglru_case(torch, timer, "ragged S 1000, h0", B=4, S=1000, D=4096, dtype="float32",
+               with_h0=True)
+    lines["mamba"] = mamba_case(torch, timer, "falcon-mamba-7b prefill", B=4, S=1024, Din=8192,
+                                N=16, dtype="bfloat16")
+    mamba_case(torch, timer, "falcon-mamba-7b prefill fp32", B=4, S=1024, Din=8192, N=16,
+               dtype="float32")
+    mamba_case(torch, timer, "ragged S 1000, h0", B=4, S=1000, Din=8192, N=16, dtype="float32",
+               with_h0=True)
     del timer
     torch.cuda.empty_cache()
     return lines
 
 
+def _paths(torch, cfg, params, toks, prompt, **over):
+    """Logits of prefill over toks[:, :prompt] and of a decode step for each
+    token after it, stacked, on the config with `over` applied."""
+    from repro_torch.models import DecoderLM
+
+    model = DecoderLM(dataclasses.replace(cfg, **over))
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": toks[:, :prompt]})
+        outs = [logits]
+        for t in range(prompt, toks.shape[1]):
+            logits, cache = model.decode_step(params, cache, toks[:, t])
+            outs.append(logits)
+        del cache
+        return torch.stack(outs).float()
+
+
 def phase_parity(torch):
     """Kernel path against plain path on the same full-width float32 weights.
 
-    The bound holds at depth 2.  Deeper, this randomly initialised model is
-    chaotic: the JAX fan-in rule puts the attention logits at a std of ~220,
-    so near-ties amplify any change of summation order.  Changing only the
-    plain path's block_k moves the depth-28 logits as much as the kernels do,
-    and both are reported.
+    llama3.2-3b holds the bound at depth 2.  Deeper, this randomly
+    initialised model is chaotic: the JAX fan-in rule puts the attention
+    logits at a std of ~220, so near-ties amplify any change of summation
+    order.  Changing only the plain path's block_k moves the depth-28 logits
+    as much as the kernels do, and both are reported.  falcon-mamba-7b runs
+    two Mamba layers; recurrentgemma-9b one (rglru, rglru, local_attn)
+    pattern with a prompt of 2304, past its window of 2048, so the window
+    mask and the ring cache act.
     """
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-    toks = torch.randint(0, 128256, (2, 260), generator=g, device="cuda")
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
 
-    def run(cfg, params, **over):
-        model = DecoderLM(dataclasses.replace(cfg, **over))
-        with torch.inference_mode():
-            logits, cache = model.prefill(params, {"tokens": toks[:, :256]})
-            outs = [logits]
-            for t in range(256, 260):
-                logits, cache = model.decode_step(params, cache, toks[:, t])
-                outs.append(logits)
-            del cache
-            return torch.stack(outs).float()
-
+    lines = []
     line = {"phase": "parity", "arch": "llama3.2-3b", "dtype": "float32", "batch": 2,
             "prompt": 256, "decode_steps": 4, "tol": 2e-3}
+    toks = torch.randint(0, 128256, (2, 260), generator=gen(1), device="cuda")
     for layers in (2, 28):
         cfg = dataclasses.replace(get_config("llama3.2-3b"), dtype="float32", n_layers=layers)
-        params = DecoderLM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
-        got, want = run(cfg, params, attn_impl="cuda"), run(cfg, params, attn_impl="torch")
+        params = DecoderLM(cfg).init(gen(0))
+        got = _paths(torch, cfg, params, toks, 256, attn_impl="cuda")
+        want = _paths(torch, cfg, params, toks, 256, attn_impl="torch")
         finite = bool(torch.isfinite(got).all())
         if layers == 2:
             line.update(layers=2, cut="depth 28 -> 2; widths as published",
                         max_abs_logit_err=float((got - want).abs().max()), finite=finite,
                         logit_absmax=float(want.abs().max()))
         else:
-            other = run(cfg, params, attn_impl="torch", attn_block_k=64)
+            other = _paths(torch, cfg, params, toks, 256, attn_impl="torch", attn_block_k=64)
             line["depth_28"] = {"kernel_vs_plain": float((got - want).abs().max()),
                                 "plain_vs_plain_block_k_64": float((other - want).abs().max()),
                                 "finite": finite}
@@ -258,48 +365,92 @@ def phase_parity(torch):
         del params, got, want
         torch.cuda.empty_cache()
     emit(line)
-    if not (line["max_abs_logit_err"] <= 2e-3 and line["finite"] and line["depth_28"]["finite"]):
+    lines.append(line)
+    if not line["depth_28"]["finite"]:
         raise AssertionError(f"parity: {line}")
+
+    for arch, layers, cut, prompt in (
+            ("falcon-mamba-7b", 2, "depth 64 -> 2; widths as published", 256),
+            ("recurrentgemma-9b", 3, "depth 38 -> 3, one (rglru, rglru, local_attn) pattern; "
+             "widths as published", 2304)):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", n_layers=layers)
+        params = DecoderLM(cfg).init(gen(0))
+        toks = torch.randint(0, cfg.vocab_size, (2, prompt + 4), generator=gen(1), device="cuda")
+        got = _paths(torch, cfg, params, toks, prompt, attn_impl="cuda")
+        want = _paths(torch, cfg, params, toks, prompt, attn_impl="torch")
+        line = {"phase": "parity", "arch": arch, "dtype": "float32", "batch": 2,
+                "prompt": prompt, "decode_steps": 4, "tol": 2e-3, "layers": layers, "cut": cut,
+                "max_abs_logit_err": float((got - want).abs().max()),
+                "finite": bool(torch.isfinite(got).all()),
+                "logit_absmax": float(want.abs().max())}
+        if cfg.window:  # the same yardstick as llama's depth 28: the plain path against itself
+            other = _paths(torch, cfg, params, toks, prompt, attn_impl="torch", attn_block_k=64)
+            line["plain_vs_plain_block_k_64"] = float((other - want).abs().max())
+            del other
+        emit(line)
+        lines.append(line)
+        del params, got, want
+        torch.cuda.empty_cache()
+    for line in lines:
+        if not (line["max_abs_logit_err"] <= 2e-3 and line["finite"]):
+            raise AssertionError(f"parity: {line}")
+
+
+# the serve phase's models and traffic: (arch, layers, prompt, launches per
+# request of each kernel: one per layer of its mixer at prefill, one per
+# attention layer and decode step)
+SERVE = (("llama3.2-3b", 28, 1024, {"flash_attention": 28, "decode_attention": 28 * 32}),
+         ("falcon-mamba-7b", 64, 1024, {"mamba_scan": 64}),
+         ("recurrentgemma-9b", 38, 3072, {"rglru_scan": 26, "flash_attention": 12,
+                                          "decode_attention": 12 * 32}))
 
 
 def phase_serve(torch):
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
+    """One serve line per model; returns each kernel's launches summed over
+    the phase."""
+    from repro_torch.kernels import decode_attention, flash_attention, mamba_scan, rglru_scan
     from repro_torch.launch import serve
 
-    requests, max_new, layers = 3, 32, 28
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    da.launches = 0
-    stats = serve.main(["--arch", "llama3.2-3b", "--full", "--batch", "4", "--prompt-len", "1024",
-                        "--max-new", str(max_new), "--requests", str(requests)])
-    launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
-    steady = slice(1, None)  # the first request also loads the kernels and cuBLAS
-    line = {"phase": "serve", "arch": "llama3.2-3b", "layers": layers, "dtype": "bfloat16",
-            "batch": 4, "prompt_len": 1024, "max_new": max_new, "requests": requests,
-            "prefill_ms": [s * 1e3 for s in stats["prefill_s"]],
-            "decode_ms_per_step": [s * 1e3 / n for s, n in zip(stats["decode_s"],
-                                                              stats["decode_steps"])],
-            "steady_prefill_ms": float(np.median([s * 1e3 for s in stats["prefill_s"][steady]])),
-            "steady_decode_ms_per_step": float(np.median(
-                [s * 1e3 / n for s, n in zip(stats["decode_s"][steady],
-                                              stats["decode_steps"][steady])])),
-            "tokens": stats["tokens"], "seconds": stats["seconds"],
-            "tokens_per_s": stats["tokens"] / stats["seconds"],
-            "logits_finite": stats["logits_finite"],
-            "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches}
-    emit(line)
-    want = {"flash_attention": layers * requests, "decode_attention": layers * max_new * requests}
-    if launches != want or not stats["logits_finite"]:
-        raise AssertionError(f"serve: launches {launches}, want {want}; "
-                             f"finite {stats['logits_finite']}")
-    torch.cuda.empty_cache()
-    return launches
+    mods = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "rglru_scan": rglru_scan, "mamba_scan": mamba_scan}
+    requests, max_new = 3, 32
+    total = dict.fromkeys(mods, 0)
+    for arch, layers, prompt, per_request in SERVE:
+        torch.cuda.reset_peak_memory_stats()
+        for m in mods.values():
+            m.launches = 0
+        stats = serve.main(["--arch", arch, "--full", "--batch", "4", "--prompt-len", str(prompt),
+                            "--max-new", str(max_new), "--requests", str(requests)])
+        launches = {k: m.launches for k, m in mods.items()}
+        steady = slice(1, None)  # the first request also loads the kernels and cuBLAS
+        line = {"phase": "serve", "arch": arch, "layers": layers, "dtype": "bfloat16",
+                "batch": 4, "prompt_len": prompt, "max_new": max_new, "requests": requests,
+                "prefill_ms": [t * 1e3 for t in stats["prefill_s"]],
+                "decode_ms_per_step": [t * 1e3 / n for t, n in zip(stats["decode_s"],
+                                                                  stats["decode_steps"])],
+                "steady_prefill_ms": float(np.median([t * 1e3 for t in
+                                                      stats["prefill_s"][steady]])),
+                "steady_decode_ms_per_step": float(np.median(
+                    [t * 1e3 / n for t, n in zip(stats["decode_s"][steady],
+                                                  stats["decode_steps"][steady])])),
+                "tokens": stats["tokens"], "seconds": stats["seconds"],
+                "tokens_per_s": stats["tokens"] / stats["seconds"],
+                "logits_finite": stats["logits_finite"],
+                "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches}
+        emit(line)
+        want = {k: per_request.get(k, 0) * requests for k in mods}
+        if launches != want or not stats["logits_finite"]:
+            raise AssertionError(f"serve {arch}: launches {launches}, want {want}; "
+                                 f"finite {stats['logits_finite']}")
+        for k in mods:
+            total[k] += launches[k]
+        torch.cuda.empty_cache()
+    return total
 
 
-def phase_profile(torch):
+def phase_profile(torch, arch, prompt):
     """Where a request's time goes: one prefill and three decode steps of
-    the published llama3.2-3b under torch.profiler, after a warm-up.  Device
+    the published `arch` under torch.profiler, after a warm-up.  Device
     time is the sum of kernel times (one stream, so they do not overlap);
     the rest of the wall time the card is idle, waiting for the host."""
     from torch.profiler import ProfilerActivity, profile
@@ -307,12 +458,12 @@ def phase_profile(torch):
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    toks = torch.randint(0, cfg.vocab_size, (4, 1024), device="cuda",
+    toks = torch.randint(0, cfg.vocab_size, (4, prompt), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(4))
-    line = {"phase": "profile", "arch": "llama3.2-3b", "batch": 4, "prompt_len": 1024}
+    line = {"phase": "profile", "arch": arch, "batch": 4, "prompt_len": prompt}
     with torch.inference_mode():
         logits, cache = model.prefill(params, {"tokens": toks})
         nxt = logits.argmax(-1)
@@ -400,6 +551,7 @@ def main(argv=None) -> int:
     if not only <= set(PHASES):
         ap.error(f"--only takes phases of {PHASES}")
 
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 1
@@ -433,16 +585,20 @@ def main(argv=None) -> int:
         phase_parity(torch)
     launches = phase_serve(torch) if "serve" in only else None
     if "profile" in only:
-        phase_profile(torch)
+        phase_profile(torch, "llama3.2-3b", 1024)
+        phase_profile(torch, "recurrentgemma-9b", 3072)
     if "store" in only:
         phase_store(torch)
+    emit({"phase": "time", "seconds": time.perf_counter() - t_start})
     if cases is None or launches is None:
         return 0  # a partial run checks what it ran and claims nothing more
 
     kernels = []
     for key, name, replaces in (
             ("flash", "flash_attention", "src/repro/kernels/flash_attention.py:91"),
-            ("decode", "decode_attention", "src/repro/kernels/decode_attention.py:70")):
+            ("decode", "decode_attention", "src/repro/kernels/decode_attention.py:70"),
+            ("rglru", "rglru_scan", "src/repro/kernels/rglru_scan.py:57"),
+            ("mamba", "mamba_scan", "src/repro/kernels/mamba_scan.py:68")):
         c = cases[key]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{name}.cu",

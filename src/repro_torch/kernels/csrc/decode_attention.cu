@@ -20,6 +20,12 @@
 // live K/V bytes over 3.35 TB/s.  Splitting the keys over chunks is what puts
 // enough blocks in flight to pull that bandwidth at batch 4 with 8 KV heads;
 // the scratch traffic is one fp32 row per (chunk, head), small next to K/V.
+//
+// Head dims 32, 64, 128 and 256.  The split pass's shared memory grows with
+// the group: recurrentgemma-9b (D=256, 16 query heads on one KV head) needs
+// 168,384 bytes, so `launch` raises each instance's dynamic limit to its
+// need.  With one KV head and a 2048-slot ring, that shape runs only 8
+// chunks x 4 rows = 32 blocks on 132 SMs.
 #include "tile.cuh"
 
 namespace {
@@ -184,6 +190,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const
     case 32: return launch<T, 32>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
     case 64: return launch<T, 64>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
     case 128: return launch<T, 128>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -20,6 +20,11 @@
 // kernel runs its products on CUDA cores, not on the tensor cores (wgmma) that
 // the bound assumes.  Register tiling (16 FMAs per 8 shared-memory loads)
 // keeps it off the shared-memory limit; wgmma and TMA are later work.
+//
+// Head dims 32, 64, 128 and 256 (recurrentgemma-9b's local attention).  At
+// D=256 the tiles take 213,760 bytes of shared memory, inside the 232,448 a
+// block may have, so one block runs on an SM at a time, and each thread keeps
+// 64 accumulator floats in registers.
 #include "tile.cuh"
 
 namespace {
@@ -179,6 +184,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
     case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream);
     default: return cudaErrorInvalidValue;
   }
 }

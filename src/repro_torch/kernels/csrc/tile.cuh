@@ -1,5 +1,5 @@
-// Shared helpers of the port's attention kernels: type conversion and the
-// global -> shared tile copy with 16-byte vector loads.
+// Shared helpers of the port's kernels: type conversion (all of them) and the
+// global -> shared tile copy with 16-byte vector loads (the attention kernels).
 #pragma once
 
 #include <cuda_bf16.h>

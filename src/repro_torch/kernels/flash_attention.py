@@ -28,7 +28,7 @@ import torch
 from . import _build
 from .ref import flash_attention_reference
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

@@ -13,7 +13,9 @@ import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import mamba_scan as _mamba
 from . import ref
+from . import rglru_scan as _rglru
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -42,3 +44,19 @@ def decode_attention(q, k, v, *, length=None, sm_scale=None, impl="auto"):
     if _resolve(impl, q) == "torch":
         return ref.decode_attention_reference(q, k, v, sm_scale=sm_scale, length=length)
     return _decode.decode_attention(q, k, v, length=length, sm_scale=sm_scale)
+
+
+def rglru_scan(x, r, i, log_a, h0=None, *, c=8.0, impl="auto", scan_dtype=None):
+    """``scan_dtype`` (bf16 rounding of the recurrence) reaches only the plain
+    version, as the JAX package passes it only to its XLA reference; the
+    CUDA kernel, like the Pallas kernel, keeps the carry in fp32."""
+    if _resolve(impl, x) == "torch":
+        return ref.rglru_reference(x, r, i, log_a, h0, c=c, scan_dtype=scan_dtype)
+    return _rglru.rglru_scan(x, r, i, log_a, h0, c=c)
+
+
+def mamba_scan(x, delta, A, B, C, D, h0=None, *, impl="auto", scan_dtype=None):
+    """``scan_dtype`` reaches only the plain version (see ``rglru_scan``)."""
+    if _resolve(impl, x) == "torch":
+        return ref.mamba_scan_reference(x, delta, A, B, C, D, h0, scan_dtype=scan_dtype)
+    return _mamba.mamba_scan(x, delta, A, B, C, D, h0)

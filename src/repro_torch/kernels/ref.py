@@ -1,14 +1,14 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention and linear-scan kernels.
 
-The torch twins of ``repro.kernels.ref``'s attention oracles.  They are the
-CPU path of the port, the oracle its CUDA kernels are held against on the
-card, and the path ``attn_impl="torch"`` takes on any device.
+The torch twins of ``repro.kernels.ref``'s attention and scan oracles.  They
+are the CPU path of the port, the oracle its CUDA kernels are held against
+on the card, and the path ``attn_impl="torch"`` takes on any device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -123,3 +123,75 @@ def decode_attention_reference(
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", probs, vv).to(q.dtype)
+
+
+# ============================================================== linear scans
+def linear_scan_reference(
+    a: torch.Tensor,  # [B, S, ...] decay
+    b: torch.Tensor,  # [B, S, ...] input term
+    h0: Optional[torch.Tensor] = None,  # [B, ...] initial state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t, one step at a time: returns (all states
+    [B, S, ...], final state [B, ...]).  The carry is in a's dtype, promoted
+    with h0's where one is given (as the JAX scan's carry is)."""
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0.to(torch.promote_types(a.dtype, h0.dtype))
+    states = torch.empty(a.shape, dtype=h.dtype, device=a.device)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        states[:, t] = h
+    return states, h
+
+
+def mamba_scan_reference(
+    x: torch.Tensor,      # [B, S, Din]
+    delta: torch.Tensor,  # [B, S, Din]  (post-softplus)
+    A: torch.Tensor,      # [Din, N] (negative)
+    Bm: torch.Tensor,     # [B, S, N]
+    Cm: torch.Tensor,     # [B, S, N]
+    D: torch.Tensor,      # [Din]
+    h0: Optional[torch.Tensor] = None,  # [B, Din, N]
+    *,
+    scan_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan: returns (y [B, S, Din] in x's dtype, h_final
+    [B, Din, N] fp32).  a_t = exp(delta_t A), b_t = delta_t x_t B_t, and
+    y_t = C_t . h_t + D x_t, all in fp32.  It steps over the sequence and
+    never holds a [B, S, Din, N] tensor.  `scan_dtype` rounds a, b and the
+    carry to that type, as the JAX oracle does."""
+    b_, s, din = x.shape
+    xf, dt = x.float(), delta.float()
+    dx = dt * xf
+    Af, Bf, Cf = A.float(), Bm.float(), Cm.float()
+    sd = scan_dtype or torch.float32
+    h = (torch.zeros((b_, din, A.shape[1]), dtype=sd, device=x.device) if h0 is None
+         else h0.to(sd))
+    ys = torch.empty((b_, s, din), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        a = torch.exp(dt[:, t, :, None] * Af[None])
+        b = dx[:, t, :, None] * Bf[:, t, None, :]
+        h = a.to(sd) * h + b.to(sd)
+        ys[:, t] = torch.einsum("bdn,bn->bd", h.float(), Cf[:, t])
+    y = ys + xf * D.float()[None, None]
+    return y.to(x.dtype), h.float()
+
+
+def rglru_reference(
+    x: torch.Tensor,      # [B, S, D]
+    r: torch.Tensor,      # [B, S, D] recurrence gate in (0,1)
+    i: torch.Tensor,      # [B, S, D] input gate in (0,1)
+    log_a: torch.Tensor,  # [D] learned log decay (negative)
+    h0: Optional[torch.Tensor] = None,  # [B, D]
+    *,
+    c: float = 8.0,
+    scan_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU (RecurrentGemma): h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t x_t),
+    a_t = exp(c r_t log_a).  Returns (states [B, S, D] in x's dtype, h_final
+    [B, D] fp32).  The arithmetic and its types follow the JAX oracle: the
+    gate product i_t x_t is taken in x's dtype, the rest in fp32."""
+    log_at = c * r * log_a[None, None]
+    a = torch.exp(log_at)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_at), min=1e-12)) * (i * x)
+    sd = scan_dtype or torch.float32
+    states, hT = linear_scan_reference(a.to(sd), b.to(sd), h0)
+    return states.to(x.dtype), hT.float()

@@ -1,11 +1,17 @@
-"""Decoder building blocks: RMSNorm, RoPE, GQA attention (global/local) and
-the SwiGLU FFN.  The RG-LRU and Mamba mixers are not ported yet.
+"""Decoder building blocks: RMSNorm, RoPE, GQA attention (global/local),
+the SwiGLU FFN, the RG-LRU recurrent block and the Mamba-1 block.
 
 Every mixer exposes ``<kind>_specs(cfg)`` -> {name: ParamSpec} and
 ``<kind>_apply(params, x, cfg, mode, cache)`` -> (y, cache) where mode is
 "train" | "prefill" | "decode".  Unlike the JAX package, which returns new
-cache arrays, the port writes the KV cache in place and returns the dict it
-was given; its layout is the JAX one, ``[B, Hkv, L, hd]`` per layer.
+cache arrays, the port writes its caches in place and returns the dict it
+was given.  Their layout is the JAX one: ``{"k", "v"}`` ``[B, Hkv, L, hd]``
+per attention layer, ``{"h", "conv"}`` per recurrent layer (``h`` fp32,
+``conv`` the last inputs of the causal conv, in the model dtype).
+
+Where JAX's defaults differ from torch's, the port matches JAX by hand:
+``jax.nn.gelu`` is the tanh approximation, and ``jax.nn.softplus`` is
+``logaddexp(x, 0)`` with no linear cut-off.
 """
 
 from __future__ import annotations
@@ -187,22 +193,181 @@ def ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + y
 
 
-# ------------------------------------------------------ recurrent mixers
-_RECURRENT = ("the {} mixer is not ported yet: ROADMAP.md queue 1 item 8 "
-              "(recurrent mixers)")
+# ---------------------------------------------------------------- RG-LRU
+def rglru_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    dr = d                      # lru width = d_model
+    nb = cfg.n_heads            # block-diagonal gate heads
+    bs = dr // nb
+    dc = 4
+    dt = cfg.torch_dtype
+    return {
+        "norm": norm_spec(cfg),
+        "w_x": ParamSpec((d, dr), ("embed", "mlp"), dt, "scaled"),
+        "w_gate": ParamSpec((d, dr), ("embed", "mlp"), dt, "scaled"),
+        "conv_w": ParamSpec((dc, dr), ("conv", "mlp"), dt, "scaled"),
+        "w_r": ParamSpec((nb, bs, bs), ("heads", None, None), dt, "scaled"),
+        "w_i": ParamSpec((nb, bs, bs), ("heads", None, None), dt, "scaled"),
+        "log_a": ParamSpec((dr,), ("mlp",), torch.float32, "zeros"),
+        "w_out": ParamSpec((dr, d), ("mlp", "embed"), dt, "scaled"),
+    }
 
 
-def rglru_specs(cfg: ModelConfig):
-    raise NotImplementedError(_RECURRENT.format("rglru"))
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor]):
+    """Depthwise causal conv (kernel K) via shifts.  x: [B,S,D]; w: [K,D];
+    state: [B,K-1,D] previous inputs (decode).  The K shifted products are
+    summed in x's dtype, in the JAX package's order."""
+    K = w.shape[0]
+    if state is not None:
+        full = torch.cat([state.to(x.dtype), x], dim=1)
+    else:
+        full = F.pad(x, (0, 0, K - 1, 0))
+    S = x.shape[1]
+    y = sum(full[:, i : i + S, :] * w[i][None, None, :] for i in range(K))
+    new_state = full[:, -(K - 1) :, :] if K > 1 else None
+    return y, new_state
 
 
-def rglru_apply(*args, **kwargs):
-    raise NotImplementedError(_RECURRENT.format("rglru"))
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), which torch's softplus is not
+    above its threshold of 20."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba_specs(cfg: ModelConfig):
-    raise NotImplementedError(_RECURRENT.format("mamba"))
+def _neg_log_a(p_log_a: torch.Tensor) -> torch.Tensor:
+    # learned parameter is unconstrained; effective log_a = -softplus(param)
+    return -_softplus(p_log_a + 5.0) * 0.1
 
 
-def mamba_apply(*args, **kwargs):
-    raise NotImplementedError(_RECURRENT.format("mamba"))
+def _left_pad_tail(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The last `n` steps of x [B,S,D], zero-padded on the left when S < n."""
+    return x[:, -n:, :] if x.shape[1] >= n else F.pad(x, (0, 0, n - x.shape[1], 0))
+
+
+def rglru_apply(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, mode: str,
+    cache: Optional[Dict] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """RG-LRU block with residual.  prefill fills `cache` ({"h": [B, dr]
+    fp32, "conv": [B, 3, dr]}) in place; decode reads and updates it in
+    place with the closed-form single step."""
+    B, S, _ = x.shape
+    nb = p["w_r"].shape[0]
+    dr = p["w_x"].shape[1]
+    bs = dr // nb
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    xb = h @ p["w_x"]
+    gb = h @ p["w_gate"]
+    conv_state = cache["conv"] if (cache is not None and mode == "decode") else None
+    xc, new_conv = _causal_conv(xb, p["conv_w"], conv_state)
+    xh = xc.reshape(B, S, nb, bs)  # the gates are block-diagonal: one product per head
+    r = torch.sigmoid(torch.einsum("bshe,hef->bshf", xh, p["w_r"]).reshape(B, S, dr))
+    gi = torch.sigmoid(torch.einsum("bshe,hef->bshf", xh, p["w_i"]).reshape(B, S, dr))
+    log_a = _neg_log_a(p["log_a"])
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        # closed-form single step (no scan)
+        log_at = 8.0 * r[:, 0] * log_a[None]
+        a = torch.exp(log_at)
+        b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_at), min=1e-12)) * (gi[:, 0] * xc[:, 0])
+        hT = a * cache["h"] + b
+        states = hT[:, None, :]
+    else:
+        states, hT = ops.rglru_scan(
+            xc, r, gi, log_a, None, impl=cfg.attn_impl,
+            scan_dtype=torch.bfloat16 if cfg.scan_bf16 else None)
+    y = F.gelu(gb, approximate="tanh") * states.to(x.dtype)
+    y = y @ p["w_out"]
+    if mode == "train":
+        return x + y, None
+    if cache is None:
+        raise ValueError("prefill needs the cache to fill")
+    if mode == "prefill":
+        new_conv = _left_pad_tail(xb, 3)
+    cache["h"].copy_(hT)
+    cache["conv"].copy_(new_conv)
+    return x + y, cache
+
+
+def rglru_cache_shape(cfg: ModelConfig, batch: int):
+    """{"h", "conv"} -> (shape, dtype) of one layer's recurrent cache."""
+    dr = cfg.d_model
+    return {"h": ((batch, dr), torch.float32), "conv": ((batch, 3, dr), cfg.torch_dtype)}
+
+
+# ----------------------------------------------------------------- Mamba
+def mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    if cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: a mamba layer needs cfg.ssm")
+    d = cfg.d_model
+    di = cfg.ssm.expand * d
+    N = cfg.ssm.d_state
+    dc = cfg.ssm.d_conv
+    dtr = cfg.ssm.dt_rank or -(-d // 16)
+    dt = cfg.torch_dtype
+    return {
+        "norm": norm_spec(cfg),
+        "w_in": ParamSpec((d, 2 * di), ("embed", "mlp"), dt, "scaled"),
+        "conv_w": ParamSpec((dc, di), ("conv", "mlp"), dt, "scaled"),
+        "conv_b": ParamSpec((di,), ("mlp",), dt, "zeros"),
+        "w_xproj": ParamSpec((di, dtr + 2 * N), ("mlp", None), dt, "scaled"),
+        "w_dt": ParamSpec((dtr, di), (None, "mlp"), dt, "scaled"),
+        "b_dt": ParamSpec((di,), ("mlp",), torch.float32, "ones"),
+        "A_log": ParamSpec((di, N), ("mlp", "state"), torch.float32, "zeros"),
+        "D": ParamSpec((di,), ("mlp",), torch.float32, "ones"),
+        "w_out": ParamSpec((di, d), ("mlp", "embed"), dt, "scaled"),
+    }
+
+
+def mamba_apply(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, mode: str,
+    cache: Optional[Dict] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Mamba-1 block with residual.  prefill fills `cache` ({"h": [B, di, N]
+    fp32, "conv": [B, K-1, di]}) in place; decode reads and updates it in
+    place with the closed-form single step."""
+    N = cfg.ssm.d_state
+    di = p["w_in"].shape[1] // 2
+    dtr = p["w_dt"].shape[0]
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    xz = h @ p["w_in"]
+    xs, z = xz[..., :di], xz[..., di:]
+    conv_state = cache["conv"] if (cache is not None and mode == "decode") else None
+    xc, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
+    xc = F.silu(xc + p["conv_b"][None, None, :])
+    proj = xc @ p["w_xproj"]
+    dt_in, Bm, Cm = proj[..., :dtr], proj[..., dtr : dtr + N], proj[..., dtr + N :]
+    delta = _softplus((dt_in @ p["w_dt"]).float() + p["b_dt"][None, None, :])
+    A = -torch.exp(p["A_log"])
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        a = torch.exp(delta[:, 0, :, None] * A[None])                      # [B,di,N]
+        b = (delta[:, 0] * xc[:, 0].float())[:, :, None] * Bm[:, 0, None, :].float()
+        hT = a * cache["h"] + b
+        y = torch.einsum("bdn,bn->bd", hT, Cm[:, 0].float()) + xc[:, 0].float() * p["D"][None]
+        y = y[:, None, :]
+    else:
+        y, hT = ops.mamba_scan(
+            xc, delta, A, Bm.contiguous(), Cm.contiguous(), p["D"], None, impl=cfg.attn_impl,
+            scan_dtype=torch.bfloat16 if cfg.scan_bf16 else None)
+    y = y.to(x.dtype) * F.silu(z)
+    y = y @ p["w_out"]
+    if mode == "train":
+        return x + y, None
+    if cache is None:
+        raise ValueError("prefill needs the cache to fill")
+    if mode == "prefill":
+        new_conv = _left_pad_tail(xs, p["conv_w"].shape[0] - 1)
+    cache["h"].copy_(hT)
+    cache["conv"].copy_(new_conv)
+    return x + y, cache
+
+
+def mamba_cache_shape(cfg: ModelConfig, batch: int):
+    """{"h", "conv"} -> (shape, dtype) of one layer's recurrent cache."""
+    di = cfg.ssm.expand * cfg.d_model
+    K = cfg.ssm.d_conv
+    return {"h": ((batch, di, cfg.ssm.d_state), torch.float32),
+            "conv": ((batch, K - 1, di), cfg.torch_dtype)}

@@ -12,9 +12,10 @@ in Python.  Entry points:
 
 Params are nested dicts/lists of tensors named as the JAX pytree.  The
 cache layout is the JAX one (``groups[g]["l0"]["mixer"]["k"]``:
-``[repeats, B, Hkv, L, hd]``), but ``prefill`` and ``decode_step`` write
-it in place: the cache ``decode_step`` returns shares its buffers with the
-one it was given.  ``pos`` is a Python int.
+``[repeats, B, Hkv, L, hd]``; a recurrent layer's ``"h"`` and ``"conv"``
+carry the same leading ``repeats`` axis), but ``prefill`` and
+``decode_step`` write it in place: the cache ``decode_step`` returns
+shares its buffers with the one it was given.  ``pos`` is a Python int.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from . import layers
 from .config import ModelConfig
 from .params import ParamSpec, abstract_params, init_params
@@ -183,17 +185,21 @@ class DecoderLM:
 
     # ------------------------------------------------------------ serving
     def _alloc_cache(self, batch: int, max_len_of, device, make):
-        """One stacked cache per group: `max_len_of(window)` is the max_len
-        that ``layers.attn_cache_shape`` sizes each layer with."""
+        """One stacked cache per group, in the JAX layout: {"k", "v"} for an
+        attention layer, sized with the max_len `max_len_of(window)`;
+        {"h", "conv"} for a recurrent one."""
         cfg = self.cfg
         groups = []
         for g in self.groups:
             gc: Dict[str, Any] = {}
             for i, (mixer, _) in enumerate(g.pattern):
-                if mixer not in ("attn", "local_attn"):
-                    raise NotImplementedError(layers._RECURRENT.format(mixer))
-                window = cfg.window if mixer == "local_attn" else None
-                shp = layers.attn_cache_shape(cfg, batch, max_len_of(window), window)
+                if mixer in ("attn", "local_attn"):
+                    window = cfg.window if mixer == "local_attn" else None
+                    shp = layers.attn_cache_shape(cfg, batch, max_len_of(window), window)
+                elif mixer == "rglru":
+                    shp = layers.rglru_cache_shape(cfg, batch)
+                else:
+                    shp = layers.mamba_cache_shape(cfg, batch)
                 lead = (g.repeats,) if g.repeats > 1 else ()
                 gc[f"l{i}"] = {"mixer": {k: make(lead + s, dtype=dt, device=device)
                                          for k, (s, dt) in shp.items()}}
@@ -215,8 +221,9 @@ class DecoderLM:
 
     def init_cache(self, batch: int, max_len: int, device=None):
         """Zero-initialized decode cache (for decode-only runs: a cache
-        'already containing' max_len tokens)."""
-        device = device if device is not None else torch.device("cpu")
+        'already containing' max_len tokens), on the card unless `device`
+        says otherwise."""
+        device = resolve_device(device)
         groups = self._alloc_cache(batch, lambda w: max_len, device, torch.zeros)
         return {"pos": max_len - 1, "groups": groups, "max_len": max_len}
 

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..tree import flatten_named, tree_map_named
 from .store import AsymStore
 
@@ -58,7 +59,8 @@ class CheckpointManager:
                 device: Optional[torch.device] = None) -> Tuple[int, Tree]:
         """Restore state onto the structure and dtypes of `template` (tensors,
         ``meta`` tensors included), on `device` (default: each template
-        tensor's own device, the CPU for ``meta``)."""
+        tensor's own device; a ``meta`` tensor's goes to the card, as every
+        entry point does unless it is given the CPU)."""
         v = version if version is not None else self.store.latest_version()
         if v == 0:
             raise FileNotFoundError("no committed version in store")
@@ -67,7 +69,7 @@ class CheckpointManager:
             shards = self.store.read_tensor(v, name)
             t = shards[0] if len(shards) == 1 else torch.cat(shards)
             dev = device if device is not None else (
-                torch.device("cpu") if leaf.device.type == "meta" else leaf.device)
+                resolve_device(None) if leaf.device.type == "meta" else leaf.device)
             return t.to(dev).to(leaf.dtype)  # cast on the target device
 
         return v, tree_map_named(one, template)

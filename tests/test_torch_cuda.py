@@ -5,8 +5,9 @@ no CUDA device is available.  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances are those of tests/test_kernels.py:19-20.  This file imports no
-JAX: the machine with the card has none.
+Tolerances are those of tests/test_kernels.py:19-20 (attention) and
+:79-80,93-94 (the scans in fp32; in bf16 they take the attention's).  This
+file imports no JAX: the machine with the card has none.
 """
 
 import dataclasses
@@ -17,12 +18,15 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as rs
 from repro_torch.models import DecoderLM
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
 
 
 @pytest.fixture
@@ -44,6 +48,7 @@ def _randn(gen, shape, dtype):
     (2, 4, 4, 192, 192, 128),     # MHA, not a multiple of the tile
     (1, 2, 2, 100, 333, 32),      # ragged both ways
     (1, 6, 2, 64, 64, 128),       # group of 3
+    (1, 16, 1, 300, 300, 256),    # recurrentgemma-9b: MQA, head_dim 256
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 128)])
@@ -65,6 +70,7 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d, dtype, causal, 
     (1, 8, 8, 300, 128, (300,)),
     (4, 24, 8, 2048, 128, (1025, 1056, 1, 2048)),
     (2, 16, 1, 700, 32, (257, 700)),
+    (2, 16, 1, 2048, 256, (2048, 1000)),  # recurrentgemma-9b: MQA, head_dim 256
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, b, hq, hkv, s, d, lengths, dtype):
@@ -81,7 +87,7 @@ def test_decode_kernel_matches_plain(cuda, b, hq, hkv, s, d, lengths, dtype):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(1, 2, 8, 256, device=cuda)
+    q = torch.zeros(1, 2, 8, 96, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 2, 64, 8, device=cuda).transpose(2, 3)
@@ -91,6 +97,58 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     kv = torch.zeros(1, 2, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         da.decode_attention(q, kv, kv, length=torch.ones(1, dtype=torch.int64, device=cuda))
+    x = torch.zeros(1, 8, 32, device=cuda)
+    a = torch.zeros(32, 12, device=cuda)
+    bc = torch.zeros(1, 8, 12, device=cuda)
+    d = torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError, match="N in"):
+        ms.mamba_scan(x, x, a, bc, bc, d)
+    a, bc = a[:, :8].contiguous(), bc[..., :8].contiguous()
+    with pytest.raises(ValueError, match="delta"):
+        ms.mamba_scan(x.bfloat16(), x.bfloat16(), a, bc.bfloat16(), bc.bfloat16(), d)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.rglru_scan(x, x.transpose(1, 2).contiguous().transpose(1, 2), x, d)
+    with pytest.raises(ValueError, match="log_a"):
+        rs.rglru_scan(x, x, x, d.bfloat16())
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 777, 512), (1, 64, 128), (4, 1000, 4096), (3, 5, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_kernel_matches_plain(cuda, b, s, d, dtype, with_h0):
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    x = _randn(gen, (b, s, d), dtype)
+    r = torch.sigmoid(_randn(gen, (b, s, d), torch.float32)).to(dtype)
+    i = torch.sigmoid(_randn(gen, (b, s, d), torch.float32)).to(dtype)
+    log_a = -torch.exp(_randn(gen, (d,), torch.float32) * 0.3) * 0.1
+    h0 = _randn(gen, (b, d), torch.float32) if with_h0 else None
+    n = rs.launches
+    y, hT = rs.rglru_scan(x, r, i, log_a, h0)
+    assert rs.launches == n + 1 and y.dtype == dtype and hT.dtype == torch.float32
+    wy, wh = ref.rglru_reference(x, r, i, log_a, h0)
+    torch.testing.assert_close(y.float(), wy.float(), **SCAN_TOL[dtype])
+    torch.testing.assert_close(hT, wh, **SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,din,n", [(2, 512, 256, 16), (1, 200, 128, 8), (2, 1000, 1024, 16),
+                                       (1, 33, 200, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_mamba_kernel_matches_plain(cuda, b, s, din, n, dtype, with_h0):
+    gen = torch.Generator(device=cuda).manual_seed(s + din + n)
+    x = _randn(gen, (b, s, din), dtype)
+    delta = torch.nn.functional.softplus(_randn(gen, (b, s, din), torch.float32))
+    A = -torch.exp(_randn(gen, (din, n), torch.float32) * 0.5)
+    Bm = _randn(gen, (b, s, n), dtype)
+    Cm = _randn(gen, (b, s, n), dtype)
+    D = _randn(gen, (din,), torch.float32)
+    h0 = _randn(gen, (b, din, n), torch.float32) if with_h0 else None
+    k = ms.launches
+    y, hT = ms.mamba_scan(x, delta, A, Bm, Cm, D, h0)
+    assert ms.launches == k + 1 and y.dtype == dtype and hT.dtype == torch.float32
+    wy, wh = ref.mamba_scan_reference(x, delta, A, Bm, Cm, D, h0)
+    torch.testing.assert_close(y.float(), wy.float(), **SCAN_TOL[dtype])
+    torch.testing.assert_close(hT, wh, **SCAN_TOL[dtype])
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b"])
@@ -114,3 +172,34 @@ def test_model_kernel_path_matches_plain_path(cuda, arch):
     got = run("cuda")
     assert (fa.launches - f0, da.launches - d0) == (cfg.n_layers, 4 * cfg.n_layers)
     torch.testing.assert_close(got, run("torch"), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,prompt,counts", [
+    ("falcon-mamba-7b", 20, {"mamba": 2}),
+    # 70 > the smoke window 64: prefill rolls the ring, decode wraps it
+    ("recurrentgemma-9b", 70, {"rglru": 4, "flash": 2, "decode": 8}),
+])
+def test_recurrent_model_kernel_path_matches_plain_path(cuda, arch, prompt, counts):
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = DecoderLM(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt + 4), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    mods = {"mamba": ms, "rglru": rs, "flash": fa, "decode": da}
+
+    def run(impl):
+        model = DecoderLM(dataclasses.replace(cfg, attn_impl=impl))
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, {"tokens": toks[:, :prompt]})
+            outs = [logits]
+            for t in range(prompt, prompt + 4):
+                logits, cache = model.decode_step(params, cache, toks[:, t])
+                outs.append(logits)
+        return torch.stack(outs)
+
+    before = {k: m.launches for k, m in mods.items()}
+    got = run("cuda")
+    launched = {k: m.launches - before[k] for k, m in mods.items()}
+    assert launched == {k: counts.get(k, 0) for k in mods}
+    # the parity bound of chip_smoke.py: the random model's attention logits
+    # are large (see tests/test_torch_models.py), so hold the logits, not ulps
+    torch.testing.assert_close(got, run("torch"), atol=2e-3, rtol=0)

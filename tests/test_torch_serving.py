@@ -21,11 +21,13 @@ from repro.serving import ServeEngine as JServeEngine
 from repro.statestore import AsymStore as JAsymStore
 from repro.statestore import CheckpointManager as JCheckpointManager
 from repro.statestore import FileBlade as JFileBlade
+from repro.statestore.checkpoint import flatten_named as j_flatten_named
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve
 from repro_torch.models import DecoderLM
 from repro_torch.serving import ServeConfig, ServeEngine
-from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade, MemoryBlade
 
 ROOT = Path(__file__).resolve().parents[1]
 ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -120,9 +122,49 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         serve.main(["--arch", "llama3.2-3b", "--requests", "1"])
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_jax_and_port_engines_serve_the_recurrent_models_alike(arch):
+    """Greedy tokens of the fp32 smoke models, the weights carried across;
+    the prompt outruns recurrentgemma's smoke window (64), so prefill rolls
+    the ring and decode wraps it."""
+    jm = JDecoderLM(j_get_smoke_config(arch, dtype="float32"))
+    jp = jm.init(jax.random.PRNGKey(3))
+    model = DecoderLM(get_smoke_config(arch, dtype="float32"))
+    params = params_from_numpy({n: np.asarray(a) for n, a in j_flatten_named(jp)}, model, "cpu")
+    prompts = np.random.default_rng(4).integers(0, 512, (2, 70)).astype(np.int32)
+    want, _ = JServeEngine(jm, jp, JServeConfig(batch_slots=2, max_new_tokens=6)).generate(prompts)
+    got, stats = ServeEngine(model, params, ServeConfig(batch_slots=2, max_new_tokens=6),
+                             device="cpu").generate(prompts)
+    assert stats["logits_finite"]
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_launch_serve_runs_the_recurrent_models_on_the_cpu(arch):
+    stats = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+                        "--max-new", "3", "--requests", "2"])
+    assert stats["tokens"] == 12 and stats["decode_steps"] == [3, 3] and stats["logits_finite"]
+
+
+def test_init_cache_and_restore_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults land on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecoderLM(get_smoke_config("falcon-mamba-7b")).init_cache(1, 4)
+    mgr = CheckpointManager(AsymStore(MemoryBlade()))
+    mgr.save_full(1, {"w": torch.arange(3.0)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mgr.restore({"w": torch.empty(3, device="meta")})
+    _, state = mgr.restore({"w": torch.empty(3, device="meta")}, device="cpu")
+    assert state["w"].device.type == "cpu"
+    _, state = mgr.restore({"w": torch.empty(3)})  # a CPU template stays on the CPU
+    assert state["w"].device.type == "cpu" and state["w"].tolist() == [0.0, 1.0, 2.0]
+
+
 def test_port_imports_no_jax_and_nothing_of_repro():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
-    assert {"repro_torch.kernels.flash_attention", "repro_torch.serving.engine",
+    assert {"repro_torch.kernels.flash_attention", "repro_torch.kernels.mamba_scan",
+            "repro_torch.kernels.rglru_scan", "repro_torch.serving.engine",
             "repro_torch.launch.serve"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"

@@ -3,18 +3,27 @@ same on-blade bytes, and versions that restore across the two packages."""
 
 import os
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_smoke_config as j_get_smoke_config
 from repro.kernels.log_checksum import fletcher32_padded_np
+from repro.models import DecoderLM as JDecoderLM
 from repro.statestore import AsymStore as JAsymStore
 from repro.statestore import CheckpointManager as JCheckpointManager
 from repro.statestore import FileBlade as JFileBlade
+from repro.statestore.checkpoint import flatten_named as j_flatten_named
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import DecoderLM
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serving import ServeConfig, ServeEngine
 from repro_torch.statestore import (AsymStore, CheckpointManager, FileBlade, MemoryBlade,
                                     fletcher32_padded)
+from repro_torch.tree import flatten_named
 
 
 @pytest.mark.parametrize("nbytes", [0, 1, 2, 3, 2047, 2048, 2049, 4096 + 7])
@@ -68,7 +77,7 @@ def test_jax_versions_restore_in_the_port_bit_exact(tmp_path):
             assert _bits(got) == _bits(want), (v, name)
     template = {k: torch.empty(tuple(np.shape(a)), dtype=t, device="meta")
                 for (k, a), t in zip(state.items(), (torch.float32, torch.bfloat16, torch.int32))}
-    v, restored = CheckpointManager(store).restore(template, version=2)
+    v, restored = CheckpointManager(store).restore(template, version=2, device="cpu")
     assert v == 2 and restored["b"].dtype == torch.bfloat16
     assert _bits(restored["w"]) == _bits(jstore.read_tensor(2, "w")[0])
     # the same bytes through the mirror
@@ -96,6 +105,50 @@ def test_port_versions_restore_in_jax_bit_exact(tmp_path):
                  (got["params"]["b"], state["params"]["b"]), (got["step"], state["step"])):
         assert _bits(a) == _bits(b)
     assert jmgr.resume_plan() == mgr.resume_plan() == (3, [])
+
+
+def test_falcon_mamba_versions_cross_the_packages_both_ways(tmp_path):
+    """JAX commits falcon-mamba-7b smoke weights (bf16 matrices beside the
+    mixer's fp32 A_log, D and b_dt) to a mirrored FileBlade; the port
+    restores every leaf bit-exact from the primary and the mirror, serves
+    the tokens that the weights held in memory serve, and commits a version
+    that JAX restores bit-exact."""
+    jm = JDecoderLM(j_get_smoke_config("falcon-mamba-7b"))
+    rng = np.random.default_rng(4)
+    # noise on every leaf, so the zero/one inits of A_log, D and b_dt carry real bits
+    jp = jax.tree.map(lambda a: (a.astype(jnp.float32) + 0.1 * rng.standard_normal(a.shape))
+                      .astype(a.dtype), jm.init(jax.random.PRNGKey(4)))
+    JCheckpointManager(JAsymStore(JFileBlade(str(tmp_path / "b"), mirrors=[str(tmp_path / "m")]))
+                       ).save_full(1, {"params": jp})
+    want = {f"params/{n}": a for n, a in j_flatten_named(jp)}
+    dtypes = {np.asarray(a).dtype.name for a in want.values()}
+    assert dtypes == {"bfloat16", "float32"}
+
+    model = DecoderLM(get_smoke_config("falcon-mamba-7b"))
+    for blade in ("b", "m"):
+        ckpt = CheckpointManager(AsymStore(FileBlade(str(tmp_path / blade))))
+        v, state = ckpt.restore({"params": model.abstract()}, device="cpu")
+        got = dict(flatten_named(state))
+        assert v == 1 and sorted(got) == sorted(want)
+        for name, arr in want.items():
+            assert str(got[name].dtype) == f"torch.{np.asarray(arr).dtype.name}", name
+            assert _bits(got[name]) == _bits(arr), (blade, name)
+
+    scfg = ServeConfig(batch_slots=2, max_new_tokens=5)
+    prompts = np.random.default_rng(5).integers(0, 512, (2, 7)).astype(np.int32)
+    held = params_from_numpy({n: np.asarray(a) for n, a in j_flatten_named(jp)}, model, "cpu")
+    expect, _ = ServeEngine(model, held, scfg, device="cpu").generate(prompts)
+    ckpt = CheckpointManager(AsymStore(FileBlade(str(tmp_path / "b"))))
+    got_toks, stats = ServeEngine.load_from_store(model, ckpt, scfg, device="cpu").generate(prompts)
+    assert stats["version"] == 1 and stats["logits_finite"]
+    np.testing.assert_array_equal(got_toks, expect)
+
+    CheckpointManager(AsymStore(FileBlade(str(tmp_path / "p")))).save_full(2, state)
+    template = {"params": jax.tree.map(jnp.zeros_like, jp)}
+    jv, back = JCheckpointManager(JAsymStore(JFileBlade(str(tmp_path / "p")))).restore(template)
+    assert jv == 2
+    for name, arr in j_flatten_named(back):
+        assert _bits(arr) == _bits(want[name]), name
 
 
 @pytest.fixture(params=["memory", "file"])
