@@ -5,16 +5,20 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # every phase; exits 0 only if all pass
     python3 chip_smoke.py --only kernel    # build + the kernel cases only
+    python3 chip_smoke.py --only kernel,train
 
 It prints one JSON object per line, one line per phase:
 
   device   the card, its power limit (nvidia-smi), torch and CUDA versions
   build    seconds to compile the CUDA kernels from csrc/ (nvcc, sm_90a)
   kernel   one line per case: the CUDA kernel against its plain PyTorch
-           version on the same inputs (max_err within tol), with kernel_ms,
-           plain_ms and library_ms (torch's scaled_dot_product_attention on
-           the same inputs, a yardstick the port never calls; no single
-           torch call computes a scan, so theirs is null) from CUDA events,
+           version on the same inputs (max_err within tol; top-k and the
+           checksums exactly, and the checksums also against the host's
+           fletcher32_padded), with kernel_ms, plain_ms and library_ms
+           (torch's scaled_dot_product_attention, its backward, or
+           torch.topk on the same inputs, yardsticks the port never calls;
+           no single torch call computes a scan or a checksum, so theirs is
+           null) from CUDA events,
            each launch after an L2 flush, and bound_ms: the larger of
            bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16, 67
            TFLOP/s fp32; the scans compute in fp32), from the shapes and
@@ -36,9 +40,24 @@ It prints one JSON object per line, one line per phase:
   store    llama3.2-3b widths cut to 2 layers: a full commit to a mirrored
            FileBlade, restored from the primary and from the mirror, serving
            the same greedy tokens as the weights held in memory
+  train    the training path: repro_torch.launch.train.main at the published
+           llama3.2-3b (28 layers, bf16, AdamW) for 5 steps of 4 x 1024
+           tokens, with no store; flash forward and backward launches held
+           to their exact counts; step ms, tokens/s, peak memory, losses;
+           then the step-0 gradient norms of the kernel and plain paths
+           (float64, per tensor), and torch.profiler over one step
+  train_parity  llama3.2-3b widths at depth 2 in float32: loss and every
+           gradient on the kernel path against the plain path, from the same
+           weights and batch (each gradient within 2e-3 of its largest entry)
+  lifecycle  tests/test_system.py::test_full_lifecycle at llama3.2-3b widths
+           cut to depth 2 (bf16, Adafactor with bf16 momentum, 2 x 256
+           tokens), on a mirrored FileBlade: 3 steps with a full commit at
+           v2 and a delta commit at v3, a crash, serving from v2 and v3,
+           bitwise resume from the primary and from the mirror; each
+           commit's seconds split into checksum, copy, write and fsync
   time     the seconds of the whole run, the kernels' build included
-  kernels  every kernel of the path: launches summed over the serve phase,
-           and the numbers of its main-path case
+  kernels  every kernel of the path: its launches over the phase that runs
+           it (serve, train or lifecycle), and the numbers of its case
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
 script exits non-zero without it.  It also exits non-zero, printing nothing,
@@ -60,7 +79,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernel", "parity", "serve", "profile", "store")
+PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_parity",
+          "lifecycle")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}                 # tests/test_kernels.py:19-20
@@ -68,6 +88,8 @@ RTOL = 1e-2
 SCAN_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (5e-4, 1e-3)}  # tests/test_kernels.py:79-80
 LLAMA = dict(B=4, Hq=24, Hkv=8, D=128)                     # llama3.2-3b attention widths
 RGEMMA = dict(B=4, Hq=16, Hkv=1, D=256)                    # recurrentgemma-9b local attention
+LLAMA_EMBED = 128256 * 3072                                 # llama3.2-3b's embedding, elements
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
 
 
 def emit(obj) -> None:
@@ -266,6 +288,140 @@ def mamba_case(torch, timer, name, *, B, S, Din, N, dtype, with_h0=False):
                       nbytes, flops)
 
 
+def flash_bwd_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype):
+    """The backward kernel against its plain version, both given the same
+    q, k, v, dO and the kernel forward's o and lse (causal, Sq == Sk)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(S * 3 + D)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Hq, S, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(dt)
+    do = torch.randn((B, Hq, S, D), generator=g, device="cuda").to(dt)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    args = (q, k, v, o, lse, do)
+    got = fb.flash_attention_backward(*args, causal=True)
+    again = fb.flash_attention_backward(*args, causal=True)
+    want = ref.flash_attention_backward_reference(*args, causal=True)
+    torch.cuda.synchronize()
+    errs, ok = [], True
+    for a, w in zip(got, want):
+        err = (a.float() - w.float()).abs()
+        errs.append(float(err.max()))
+        ok = ok and bool((err <= TOL[dtype] + RTOL * w.float().abs()).all())
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again, want
+
+    pairs = S * (S + 1) // 2
+    item = torch.finfo(dt).bits // 8
+    # q, o, dO read and dq written; k, v read and dk, dv written; lse read
+    nbytes = item * (4 * B * Hq * S * D + 4 * B * Hkv * S * D) + 4 * B * Hq * S
+    flops = 2.5 * 4.0 * B * Hq * D * pairs  # dV, dP, dS.K, dS^T.Q against the forward's two
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                                   enable_gqa=True)
+    line = {"phase": "kernel", "kernel": "flash_attention_bwd", "case": name, "dtype": dtype,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D}, "causal": True,
+            "max_err": max(errs), "max_err_dq_dk_dv": errs,
+            "tol": {"atol": TOL[dtype], "rtol": RTOL}, "bitwise_repeat": bitwise,
+            "ok": ok and bitwise,
+            "kernel_ms": timer(lambda: fb.flash_attention_backward(*args, causal=True)),
+            "plain_ms": timer(lambda: ref.flash_attention_backward_reference(*args, causal=True),
+                              iters=3),
+            "library_ms": timer(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                            retain_graph=True)),
+            "library": "backward of scaled_dot_product_attention, timed alone",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    emit(line)
+    del lib_out, leaves
+    if not line["ok"]:
+        raise AssertionError(f"flash_attention_bwd case {name}: {errs}, bitwise {bitwise}")
+    return line
+
+
+def topk_case(torch, timer, name, *, n, k, dtype="float32"):
+    """topk_compress on a delta the size of `n` elements: bit for bit
+    against the plain version (a stable sort, ties to the lowest index)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_compress as tk
+
+    g = torch.Generator(device="cuda").manual_seed(k)
+    x = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(getattr(torch, dtype))
+    got = tk.topk_compress(x, k)
+    want = ref.topk_compress_reference(x, k)
+    torch.cuda.synchronize()
+    exact = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    del got, want
+    nb = -(-n // 1024)
+    item = torch.finfo(x.dtype).bits // 8
+    nbytes = 2 * item * n + nb * k * 8  # x read, residual written, vals and idx written
+    bound_ms, bound_by = bound(nbytes, float(k) * n, "float32")  # a compare per element a round
+    mags = x.view(-1, 1024).abs() if n % 1024 == 0 else None
+    line = {"phase": "kernel", "kernel": "topk_compress", "case": name, "dtype": dtype, "n": n,
+            "k": k, "exact_vals_idx_residual": exact, "max_err": 0.0 if all(exact) else None,
+            "ok": all(exact), "kernel_ms": timer(lambda: tk.topk_compress(x, k)),
+            "plain_ms": timer(lambda: ref.topk_compress_reference(x, k), iters=3),
+            "library_ms": timer(lambda: torch.topk(mags, k, dim=1)) if mags is not None else None,
+            "library": "torch.topk of the [nb, 1024] magnitudes (selection only)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": float(k) * n}
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"topk_compress case {name}: exact {exact}")
+    return line
+
+
+def fletcher_case(torch, timer, name, kernel, chunks):
+    """The checksum kernel on `chunks` (uint8 tensors on the card) against
+    its plain version and the host's fletcher32_padded, all exact.  The
+    "fletcher32" kernel is the one-segment call of the same kernel."""
+    from repro_torch.kernels import log_checksum as lc
+    from repro_torch.kernels import ref
+    from repro_torch.statestore import fletcher32_padded
+
+    if kernel == "fletcher32":
+        run = lambda: lc.fletcher32(chunks[0])  # noqa: E731
+        plain = lambda: ref.fletcher32_reference(chunks[0])  # noqa: E731
+    else:
+        run = lambda: lc.fletcher32_wave(chunks)  # noqa: E731
+        plain = lambda: ref.fletcher32_wave_reference(chunks)  # noqa: E731
+    got = [int(c) for c in run().reshape(-1).tolist()]
+    want_plain = [int(c) for c in plain().reshape(-1).tolist()]
+    t0 = time.perf_counter()
+    want_host = [fletcher32_padded(c.cpu().numpy().tobytes()) for c in chunks]
+    host_s = time.perf_counter() - t0
+    nbytes = sum(c.numel() for c in chunks)
+    words = nbytes / 2
+    bound_ms, bound_by = bound(nbytes, 3.0 * words, "float32")  # add, multiply-add per word
+    line = {"phase": "kernel", "kernel": kernel, "case": name, "segments": len(chunks),
+            "bytes": nbytes, "equal_plain": got == want_plain, "equal_host": got == want_host,
+            "max_err": 0.0 if got == want_plain == want_host else None,
+            "ok": got == want_plain == want_host, "host_checksum_s": host_s,
+            "kernel_ms": timer(run), "plain_ms": timer(plain, iters=3), "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"{kernel} case {name}: {got[:4]} plain {want_plain[:4]} "
+                             f"host {want_host[:4]}")
+    return line
+
+
+def _lifecycle_model(torch):
+    """The lifecycle's model and train config: llama3.2-3b widths cut to
+    depth 2, bf16, Adafactor with bf16 momentum."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import OptConfig, TrainConfig
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2)
+    return DecoderLM(cfg), TrainConfig(opt=OptConfig(kind="adafactor", lr=1e-3,
+                                                     momentum_dtype="bfloat16"))
+
+
 def phase_kernels(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -303,6 +459,27 @@ def phase_kernels(torch):
                dtype="float32")
     mamba_case(torch, timer, "ragged S 1000, h0", B=4, S=1000, Din=8192, N=16, dtype="float32",
                with_h0=True)
+    lines["flash_bwd"] = flash_bwd_case(torch, timer, "llama3.2-3b training", S=TRAIN_SEQ,
+                                        dtype="bfloat16", **LLAMA)
+    flash_bwd_case(torch, timer, "llama3.2-3b training fp32", S=TRAIN_SEQ, dtype="float32",
+                   **LLAMA)
+    torch.cuda.empty_cache()
+    lines["topk"] = topk_case(torch, timer, "llama3.2-3b embedding delta", n=LLAMA_EMBED, k=10)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(32)
+    stream = torch.randint(0, 256, (1 << 30,), dtype=torch.uint8, device="cuda", generator=g)
+    lines["fletcher32"] = fletcher_case(torch, timer, "1 GiB stream", "fletcher32", [stream])
+    del stream
+    from repro_torch.kernels.log_checksum import as_bytes
+    from repro_torch.training import init_train_state
+    from repro_torch.tree import flatten_named
+
+    model, tcfg = _lifecycle_model(torch)
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(9), tcfg)
+    lines["fletcher32_wave"] = fletcher_case(
+        torch, timer, "the lifecycle's train state (llama3.2-3b widths, depth 2, Adafactor)",
+        "fletcher32_wave", [as_bytes(t.contiguous()) for _, t in flatten_named(state)])
+    del state, model
     del timer
     torch.cuda.empty_cache()
     return lines
@@ -542,6 +719,249 @@ def phase_store(torch):
         raise AssertionError(f"store: tokens differ {same}")
 
 
+def phase_train(torch):
+    """The training main path at the published llama3.2-3b: returns the
+    flash forward and backward launches of the phase."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.launch import train
+
+    layers = 28
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fb.launches = 0
+    out = train.main(["--arch", "llama3.2-3b", "--full", "--steps", str(TRAIN_STEPS),
+                      "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ)])
+    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
+    steady = out["step_s"][1:]  # the first step also loads the kernels and cuBLAS
+    step_ms = float(np.median(steady)) * 1e3
+    line = {"phase": "train", "arch": "llama3.2-3b", "layers": layers, "dtype": "bfloat16",
+            "optimizer": "adamw", "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "step_ms": [t * 1e3 for t in out["step_s"]],
+            "median_steady_step_ms": step_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+            "losses": out["losses"], "grad_norms": out["grad_norms"],
+            "all_finite": out["all_finite"], "seconds": out["seconds"],
+            "max_memory_allocated": out["max_memory_allocated"], "launches": launches}
+    emit(line)
+    want = {k: layers * TRAIN_STEPS for k in launches}
+    if launches != want or not out["all_finite"]:
+        raise AssertionError(f"train: launches {launches}, want {want}; "
+                             f"finite {out['all_finite']}")
+    torch.cuda.empty_cache()
+    _train_grad_norms(torch)
+    _train_profile(torch)
+    return launches
+
+
+def _train_batch(torch, vocab):
+    from repro_torch.data import DataConfig, SyntheticPipeline
+
+    dcfg = DataConfig(vocab_size=vocab, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    return {k: torch.from_numpy(v).cuda() for k, v in SyntheticPipeline(dcfg).batch_at(0).items()}
+
+
+def _train_grad_norms(torch):
+    """The train line's step-0 gradient norm, taken apart: each tensor's
+    gradient norm in float64 on the kernel path and on the plain path, from
+    the train phase's own weights (seed 0) and first batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.tree import flatten_named, tree_map_named
+
+    cfg = get_config("llama3.2-3b")
+    params = DecoderLM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = _train_batch(torch, cfg.vocab_size)
+    norms = {}
+    for impl in ("cuda", "torch"):
+        model = DecoderLM(dataclasses.replace(cfg, attn_impl=impl))
+        leaves = {n: p.detach().requires_grad_(True) for n, p in flatten_named(params)}
+        with torch.enable_grad():
+            loss = model.loss(tree_map_named(lambda n, _: leaves[n], params), batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        norms[impl] = {n: float(g.double().norm()) for n, g in zip(leaves, grads)}
+        norms[impl + "_loss"] = float(loss.detach())
+        del grads, leaves, loss
+        torch.cuda.empty_cache()
+    top = sorted(norms["cuda"], key=lambda n: -norms["cuda"][n])[:5]
+    total = {impl: float(np.sqrt(sum(v * v for v in norms[impl].values())))
+             for impl in ("cuda", "torch")}
+    emit({"phase": "train", "what": "step-0 gradient norms, float64, kernel and plain paths",
+          "loss": {"kernel": norms["cuda_loss"], "plain": norms["torch_loss"]},
+          "global_norm": {"kernel": total["cuda"], "plain": total["torch"]},
+          "largest": [[n, norms["cuda"][n], norms["torch"][n]] for n in top]})
+    del params
+    torch.cuda.empty_cache()
+
+
+def _train_profile(torch):
+    """Where a training step's time goes: one AdamW step of the published
+    llama3.2-3b under torch.profiler, after a warm-up step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import OptConfig, TrainConfig, init_train_state, make_train_step
+    from repro_torch.training.trainer import deterministic_cuda
+
+    cfg = get_config("llama3.2-3b")
+    model = DecoderLM(cfg)
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3))
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), tcfg)
+    batch = _train_batch(torch, cfg.vocab_size)
+    step = make_train_step(model, tcfg)
+    with deterministic_cuda():  # as the trainer runs its steps
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            enqueue = time.perf_counter() - t0
+            float(metrics["loss"])
+            wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 for e in events
+           if getattr(e, "self_device_time_total", 0.0) > 0
+           and e.device_type == torch.autograd.DeviceType.CUDA}
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    device_ms = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": "train", "what": "profile of one step", "arch": "llama3.2-3b",
+          "wall_ms": wall * 1e3, "host_enqueue_ms": enqueue * 1e3, "device_ms": device_ms,
+          "device_idle_share": max(0.0, 1 - device_ms / (wall * 1e3)),
+          "kernel_launches": launches, "top_device_ms": [[k[:60], v] for k, v in top]})
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity(torch):
+    """Loss and gradients on the kernel path against the plain path, from
+    the same float32 weights and batch, at llama3.2-3b widths cut to depth 2."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models import DecoderLM
+    from repro_torch.tree import flatten_named, tree_map_named
+
+    tol = 2e-3
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), dtype="float32", n_layers=2)
+    params = DecoderLM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticPipeline(
+        DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=256)).batch_at(0).items()}
+
+    def loss_and_grads(impl):
+        model = DecoderLM(dataclasses.replace(cfg, attn_impl=impl))
+        leaves = {n: p.detach().requires_grad_(True) for n, p in flatten_named(params)}
+        with torch.enable_grad():
+            loss = model.loss(tree_map_named(lambda n, _: leaves[n], params), batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), dict(zip(leaves, grads))
+
+    fa.launches = fb.launches = 0
+    loss_k, grads_k = loss_and_grads("cuda")
+    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
+    loss_p, grads_p = loss_and_grads("torch")
+    rel = {n: float((grads_k[n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+           for n, g in grads_p.items()}
+    worst = max(rel, key=rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    line = {"phase": "train_parity", "arch": "llama3.2-3b", "layers": 2, "dtype": "float32",
+            "cut": "depth 28 -> 2; widths as published", "batch": 2, "seq_len": 256,
+            "loss_kernel": loss_k, "loss_plain": loss_p, "loss_abs_err": abs(loss_k - loss_p),
+            "max_grad_err_rel_to_scale": rel[worst], "worst_grad": worst,
+            "grad_err_rel_to_scale": rel, "tol_rel_to_scale": tol, "finite": finite,
+            "launches_kernel_path": launches}
+    emit(line)
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+    if not (rel[worst] <= tol and abs(loss_k - loss_p) <= 1e-4 and finite
+            and launches == {"flash_attention": 2, "flash_attention_bwd": 2}):
+        raise AssertionError(f"train_parity: {line}")
+
+
+def phase_lifecycle(torch):
+    """tests/test_system.py::test_full_lifecycle on the card; returns the
+    launches of topk_compress and of the checksum kernel over the phase."""
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import log_checksum as lc
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_named, tree_map_named
+
+    model, tcfg = _lifecycle_model(torch)
+    cfg = model.cfg
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=256)
+    scfg = ServeConfig(batch_slots=2, max_new_tokens=8)
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    line = {"phase": "lifecycle", "arch": "llama3.2-3b", "layers": 2, "dtype": "bfloat16",
+            "cut": "depth 28 -> 2; widths as published", "optimizer": "adafactor",
+            "momentum_dtype": "bfloat16", "global_batch": 2, "seq_len": 256,
+            "full_every": 2, "delta_every": 3}
+    with tempfile.TemporaryDirectory() as tmp:
+        primary, mirror = os.path.join(tmp, "primary"), os.path.join(tmp, "mirror")
+        ckpt = CheckpointManager(AsymStore(FileBlade(primary, mirrors=[mirror])), full_every=2,
+                                 delta_every=3, keep=3)
+        tk.launches = lc.launches = 0
+        tr = Trainer(model, tcfg, dcfg, ckpt=ckpt, seed=9)
+        tr.init()
+        tr.run(TrainerConfig(total_steps=2))
+        at_v2 = {n: t.clone() for n, t in flatten_named(tr.state["params"])}
+        tr.run(TrainerConfig(total_steps=3))
+        launches = {"topk_compress": tk.launches, "fletcher32_wave": lc.launches}
+        want = {n: t.clone() for n, t in flatten_named(tr.state)}
+        line["losses"] = [m["loss"] for m in tr.metrics_log]
+        line["commits"] = ckpt.commits
+        line["floating_leaves"] = sum(t.is_floating_point() for t in want.values())
+        del tr, ckpt  # the crash
+
+        served = {}
+        for v in (2, 3):
+            eng = ServeEngine.load_from_store(
+                model, CheckpointManager(AsymStore(FileBlade(primary))), scfg, version=v)
+            toks, stats = eng.generate(prompts)
+            served[v] = {"version": stats["version"], "logits_finite": stats["logits_finite"],
+                         "tokens": toks}
+            del eng
+        params_v2 = tree_map_named(lambda n, _: at_v2[n], model.abstract())
+        held = ServeEngine(model, params_v2, scfg).generate(prompts)[0]
+        line["serve_v2_same_tokens_as_memory"] = bool(np.array_equal(served[2]["tokens"], held))
+        line["serve_v3_finite"] = served[3]["logits_finite"]
+        line["serve_versions"] = [served[2]["version"], served[3]["version"]]
+        del at_v2, params_v2
+
+        resumed = {}
+        for name, path in (("primary", primary), ("mirror", mirror)):
+            t0 = time.perf_counter()
+            tr = Trainer(model, tcfg, dcfg, seed=9,
+                         ckpt=CheckpointManager(AsymStore(FileBlade(path)), full_every=0))
+            start = tr.resume()
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            tr.run(TrainerConfig(total_steps=3), start_step=start)
+            got = dict(flatten_named(tr.state))
+            resumed[name] = {"start": start, "restore_s": restore_s,
+                             "bitwise": sorted(got) == sorted(want)
+                             and all(torch.equal(got[n], want[n]) for n in want)}
+            del tr, got
+        line["resume"] = resumed
+    line["launches"] = launches
+    emit(line)
+    del want
+    torch.cuda.empty_cache()
+    ok = (line["serve_v2_same_tokens_as_memory"] and line["serve_v3_finite"]
+          and line["serve_versions"] == [2, 3]
+          and all(r["bitwise"] and r["start"] == 2 for r in resumed.values())
+          and [c["kind"] for c in line["commits"]] == ["full", "delta"]
+          and launches == {"topk_compress": line["floating_leaves"], "fletcher32_wave": 2})
+    if not ok:
+        raise AssertionError(f"lifecycle: {line}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -555,6 +975,9 @@ def main(argv=None) -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 1
+    # cuBLAS reads this when it starts; the trainer's deterministic steps
+    # need it (repro_torch/training/trainer.py)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -589,24 +1012,50 @@ def main(argv=None) -> int:
         phase_profile(torch, "recurrentgemma-9b", 3072)
     if "store" in only:
         phase_store(torch)
+    train = phase_train(torch) if "train" in only else None
+    if "train_parity" in only:
+        phase_train_parity(torch)
+    lifecycle = phase_lifecycle(torch) if "lifecycle" in only else None
     emit({"phase": "time", "seconds": time.perf_counter() - t_start})
-    if cases is None or launches is None:
+    if cases is None or launches is None or train is None or lifecycle is None:
         return 0  # a partial run checks what it ran and claims nothing more
 
+    # each kernel's launches over the phase of the main path that runs it:
+    # serving (the attention forward, decode, the scans), training (the
+    # attention backward) and the lifecycle's commits (top-k, checksums).
+    # One CUDA kernel replaces both Pallas checksums: the main path calls it
+    # as a wave, and its one-segment call (fletcher32) rides in that entry
+    ran = dict(launches, flash_attention_bwd=train["flash_attention_bwd"],
+               topk_compress=lifecycle["topk_compress"],
+               fletcher32_wave=lifecycle["fletcher32_wave"])
     kernels = []
-    for key, name, replaces in (
-            ("flash", "flash_attention", "src/repro/kernels/flash_attention.py:91"),
-            ("decode", "decode_attention", "src/repro/kernels/decode_attention.py:70"),
-            ("rglru", "rglru_scan", "src/repro/kernels/rglru_scan.py:57"),
-            ("mamba", "mamba_scan", "src/repro/kernels/mamba_scan.py:68")):
+    for key, name, source, replaces in (
+            ("flash", "flash_attention", "flash_attention",
+             "src/repro/kernels/flash_attention.py:91"),
+            ("flash_bwd", "flash_attention_bwd", "flash_attention_bwd",
+             "src/repro/kernels/flash_attention.py:91 (its gradient; JAX differentiates "
+             "src/repro/kernels/ref.py:flash_attention_reference)"),
+            ("decode", "decode_attention", "decode_attention",
+             "src/repro/kernels/decode_attention.py:70"),
+            ("rglru", "rglru_scan", "rglru_scan", "src/repro/kernels/rglru_scan.py:57"),
+            ("mamba", "mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan.py:68"),
+            ("topk", "topk_compress", "topk_compress", "src/repro/kernels/topk_compress.py:42"),
+            ("fletcher32_wave", "fletcher32_wave", "log_checksum",
+             "src/repro/kernels/log_checksum.py:133, and :65 (fletcher32, its one-segment "
+             "form)")):
         c = cases[key]
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                        "replaces": replaces, "launches": launches[name],
+                        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+                        "replaces": replaces, "launches": ran[name],
                         "max_abs_err": c["max_err"], "ms": c["kernel_ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "checked": True})
+    one = cases["fletcher32"]  # checked in its kernel case; the main path never makes the call
+    kernels[-1]["one_segment"] = {"name": "fletcher32", "case": one["case"],
+                                  "max_abs_err": one["max_err"], "ms": one["kernel_ms"],
+                                  "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+                                  "bound_by": one["bound_by"], "library_ms": one["library_ms"]}
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the main path never launched: {kernels}")
     emit({"kernels": kernels})

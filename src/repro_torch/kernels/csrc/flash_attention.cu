@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:flash_attention.
 // Contract: q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D], contiguous, fp32 or bf16 (one type
-// for all three); o [B,Hq,Sq,D] in that type.  Query row i sits at absolute
+// for all three); o [B,Hq,Sq,D] in that type; when lse is not null, also each
+// row's fp32 log-sum-exp of its scaled logits, lse [B,Hq,Sq] (m + log l: what
+// the backward, flash_attention_bwd.cu, needs to rebuild P).  Query row i sits at absolute
 // position i + q_offset; key j is visible when j < Sk, j <= pos (causal) and
 // j > pos - window (window > 0).  Query head h reads KV head h / (Hq / Hkv).
 //
@@ -42,8 +44,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
-                 int window, int q_offset) {
+                 T* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                 float scale, int causal, int window, int q_offset) {
   constexpr int LDQ = D + 1;   // padded rows: column reads across rows hit distinct banks
   constexpr int LDP = BN + 1;
   constexpr int CW = D / 16;   // accumulator columns per thread
@@ -157,14 +159,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       T* orow = o + ((size_t)(b * Hq + h) * Sq + q0 + r) * D;
 #pragma unroll
       for (int c = 0; c < CW; ++c) orow[tc + 16 * c] = repro::from_float<T>(acc[i][c] / denom);
+      if (lse != nullptr && tc == 0) lse[(size_t)(b * Hq + h) * Sq + q0 + r] = m[i] + logf(denom);
     }
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                   int Sq, int Sk, float scale, int causal, int window, int q_offset,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Hq, int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                   int q_offset, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -172,36 +175,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((Sq + BM - 1) / BM, Hq, B);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Sk, scale, causal, window, q_offset);
+      static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                       int Hkv, int Sq, int Sk, float scale, int causal, int window, int q_offset,
-                       cudaStream_t stream) {
+cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int Hq, int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                       int q_offset, cudaStream_t stream) {
+#define REPRO_FA_ARGS q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, stream);
+    case 32: return launch<T, 32>(REPRO_FA_ARGS);
+    case 64: return launch<T, 64>(REPRO_FA_ARGS);
+    case 128: return launch<T, 128>(REPRO_FA_ARGS);
+    case 256: return launch<T, 256>(REPRO_FA_ARGS);
+#undef REPRO_FA_ARGS
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0: no window.  Returns the
-// cudaError_t of the launch (0 on success); the kernel runs asynchronously.
+// dtype: 0 = float32, 1 = bfloat16.  window <= 0: no window.  lse may be null
+// (serving needs no log-sum-exp).  Returns the cudaError_t of the launch (0 on
+// success); the kernel runs asynchronously.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                                     float scale, int causal, int window, int q_offset,
+                                     void* lse, int dtype, int B, int Hq, int Hkv, int Sq, int Sk,
+                                     int D, float scale, int causal, int window, int q_offset,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset, s);
+    return dispatch_d<float>(D, q, k, v, o, l, B, Hq, Hkv, Sq, Sk, scale, causal, window,
+                             q_offset, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, window,
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, l, B, Hq, Hkv, Sq, Sk, scale, causal, window,
                                      q_offset, s);
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-"""Flash attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention: the hand-written CUDA forward, its gradient, and their
+plain versions.
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention``, the Pallas
 TPU kernel (FlashAttention-2 forward with causal, local-window and
@@ -14,7 +15,12 @@ K/V tiles in shared memory, loop bounds taken from the masks so masked
 tiles are never read, register-tiled products on CUDA cores.  It runs well
 above the bound; ``wgmma``/TMA are later work (see PERF.md for its times).
 
-``launches`` counts kernel launches; the plain path never adds to it.
+Training differentiates through ``FlashAttention``, a ``torch.autograd.Function``
+whose forward also writes each row's log-sum-exp and whose backward is the
+hand-written kernel of ``flash_attention_bwd`` (the JAX package has no
+backward kernel; it differentiates its XLA reference).
+
+``launches`` counts forward kernel launches; the plain path never adds to it.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import flash_attention_reference
+from . import flash_attention_bwd as _bwd
+from .ref import flash_attention_backward_reference, flash_attention_reference
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,7 +46,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -53,15 +60,18 @@ def flash_attention(
     window: Optional[int] = None,
     sm_scale: Optional[float] = None,
     q_offset: int = 0,
-) -> torch.Tensor:
-    """Attention of q over k/v; output [B, Hq, Sq, D] in q's dtype.
+    return_lse: bool = False,
+):
+    """Attention of q over k/v; output [B, Hq, Sq, D] in q's dtype, and with
+    `return_lse` also each row's log-sum-exp [B, Hq, Sq] fp32.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel, or
     raise when the kernel does not take them: nothing falls back.
     """
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, window=window,
-                                         sm_scale=sm_scale, q_offset=q_offset)
+                                         sm_scale=sm_scale, q_offset=q_offset,
+                                         return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, hq, sq, d = q.shape
@@ -86,17 +96,58 @@ def flash_attention(
     if sk == 0:
         raise ValueError("flash_attention: empty key sequence")
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, _DTYPE_CODES[q.dtype],
             b, hq, hkv, sq, sk, d, scale, int(bool(causal)), int(window or 0), int(q_offset),
             stream)
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with cudaError {err}")
     global launches
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention.  The forward saves q, k, v, the output
+    and the row log-sum-exp; the backward recomputes the probabilities from
+    them.  `use_kernels` picks the CUDA kernels (forward and backward) or the
+    plain versions of both (``ref.py``), which are the same formulas."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale, q_offset, block_k, use_kernels):
+        if use_kernels:
+            out, lse = flash_attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale,
+                                       q_offset=q_offset, return_lse=True)
+        else:
+            out, lse = flash_attention_reference(q, k, v, causal=causal, window=window,
+                                                 sm_scale=sm_scale, q_offset=q_offset,
+                                                 block_k=block_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, sm_scale=sm_scale, q_offset=q_offset)
+        ctx.use_kernels = use_kernels
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = _bwd.flash_attention_backward if ctx.use_kernels else \
+            flash_attention_backward_reference
+        dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_trainable(q, k, v, *, causal=True, window=None, sm_scale=None, q_offset=0,
+                              block_k=512, use_kernels=None):
+    """`flash_attention` with a gradient: the kernels on CUDA tensors, the
+    plain forward and backward on CPU tensors (or with use_kernels=False)."""
+    if use_kernels is None:
+        use_kernels = q.is_cuda
+    return FlashAttention.apply(q, k, v, causal, window, sm_scale, q_offset, block_k,
+                                use_kernels)

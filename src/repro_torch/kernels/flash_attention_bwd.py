@@ -1,0 +1,116 @@
+"""Flash attention backward: the hand-written CUDA kernel and its plain version.
+
+The JAX package has no backward kernel for ``repro/kernels/flash_attention.py:
+flash_attention``: it differentiates its XLA reference.  On the card the
+port's forward is a kernel, so its gradient is one too: ``csrc/
+flash_attention_bwd.cu``, a FlashAttention-2 backward (a pre-pass for
+``D = rowsum(dO * O)``, one block per KV tile for dK/dV, one per q tile for
+dQ, no atomics, so two runs give the same bits).  Its plain PyTorch version
+is ``ref.flash_attention_backward_reference``, the same formulas.
+
+What bounds it on the H100: the tensor cores.  At llama3.2-3b's training
+shape (B=4, S=1024, causal, bf16) it does 2.5x the forward's 25.8 GFLOP,
+about 65 us at 989 TFLOP/s; it runs its products on CUDA cores (see the
+source and PERF.md).  Head dims 32, 64 and 128.
+
+``launches`` counts kernel launches (one per backward: the C entry point
+issues the three kernels); the plain path never adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .ref import flash_attention_backward_reference
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.repro_flash_attention_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_backward(
+    q: torch.Tensor,    # [B, Hq, Sq, D]
+    k: torch.Tensor,    # [B, Hkv, Sk, D]
+    v: torch.Tensor,    # [B, Hkv, Sk, D]
+    o: torch.Tensor,    # [B, Hq, Sq, D]
+    lse: torch.Tensor,  # [B, Hq, Sq] fp32
+    do: torch.Tensor,   # [B, Hq, Sq, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the types of q, k, v.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel, or
+    raise when the kernel does not take them: nothing falls back.
+    """
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward: unsupported device {q.device}")
+    b, hq, sq, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention_backward: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    hkv, sk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"flash_attention_backward: {hq} query heads are not a multiple of "
+                         f"{hkv} KV heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_backward: head_dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise ValueError("flash_attention_backward: q, k, v, o, do must share one dtype, "
+                         f"float32 or bfloat16; got {[t.dtype for t in (q, k, v, o, do)]}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq):
+        raise ValueError(f"flash_attention_backward: lse must be float32 {(b, hq, sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_backward: {name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_backward: {name} must be contiguous and "
+                             "16-byte aligned")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention_backward: {name} has shape {tuple(t.shape)}, "
+                             f"q {tuple(q.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention_backward: window {window} < 1")
+    if sk == 0:
+        raise ValueError("flash_attention_backward: empty key sequence")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d, scale, int(bool(causal)),
+            int(window or 0), int(q_offset), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_backward: kernel launch failed with cudaError {err}")
+    global launches
+    launches += 1
+    return dq, dk, dv

@@ -13,9 +13,11 @@ import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import log_checksum as _checksum
 from . import mamba_scan as _mamba
 from . import ref
 from . import rglru_scan as _rglru
+from . import topk_compress as _topk
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -32,7 +34,15 @@ def _resolve(impl: str, x: torch.Tensor) -> str:
 
 def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
                     q_offset=0, impl="auto", block_k=512):
-    if _resolve(impl, q) == "torch":
+    """Tensors that need a gradient go through the differentiable
+    ``FlashAttention``: the forward and backward kernels for "cuda", their
+    plain versions for "torch"."""
+    resolved = _resolve(impl, q)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _flash.flash_attention_trainable(
+            q, k, v, causal=causal, window=window, sm_scale=sm_scale, q_offset=q_offset,
+            block_k=block_k, use_kernels=resolved == "cuda")
+    if resolved == "torch":
         return ref.flash_attention_reference(
             q, k, v, causal=causal, window=window, sm_scale=sm_scale,
             q_offset=q_offset, block_k=block_k)
@@ -60,3 +70,32 @@ def mamba_scan(x, delta, A, B, C, D, h0=None, *, impl="auto", scan_dtype=None):
     if _resolve(impl, x) == "torch":
         return ref.mamba_scan_reference(x, delta, A, B, C, D, h0, scan_dtype=scan_dtype)
     return _mamba.mamba_scan(x, delta, A, B, C, D, h0)
+
+
+def topk_compress(x, k, *, block=1024, impl="auto"):
+    """(vals [nb, k] fp32, idx [nb, k] int32, residual [n]) of a 1-D tensor."""
+    if _resolve(impl, x) == "torch":
+        return ref.topk_compress_reference(x, k, block=block)
+    return _topk.topk_compress(x, k, block=block)
+
+
+def topk_decompress(vals, idx, n, *, block=1024):
+    """[n]: each block's vals at idx, zeros elsewhere (plain PyTorch, as the
+    JAX package has no kernel for it)."""
+    return ref.topk_decompress_reference(vals, idx, n, block=block)
+
+
+def fletcher32(x, *, impl="auto"):
+    """0-d int64 Fletcher-32 of a uint8 byte tensor or of int words < 2^16."""
+    if _resolve(impl, x) == "torch":
+        return ref.fletcher32_reference(x)
+    return _checksum.fletcher32(x)
+
+
+def fletcher32_wave(chunks, *, impl="auto"):
+    """[len(chunks)] int64: the Fletcher-32 of each uint8 chunk, one launch."""
+    if not chunks:
+        raise ValueError("fletcher32_wave: no chunks")
+    if _resolve(impl, chunks[0]) == "torch":
+        return ref.fletcher32_wave_reference(chunks)
+    return _checksum.fletcher32_wave(chunks)

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the attention and linear-scan kernels.
+"""Plain PyTorch versions of every kernel of the port.
 
-The torch twins of ``repro.kernels.ref``'s attention and scan oracles.  They
-are the CPU path of the port, the oracle its CUDA kernels are held against
-on the card, and the path ``attn_impl="torch"`` takes on any device.
+The torch twins of ``repro.kernels.ref``'s attention, scan, top-k and
+checksum oracles, and the attention backward the JAX package leaves to
+autodiff.  They are the CPU path of the port, the oracle its CUDA kernels
+are held against on the card, and the path ``impl="torch"`` takes on any
+device.
 """
 
 from __future__ import annotations
@@ -62,11 +64,15 @@ def flash_attention_reference(
     sm_scale: Optional[float] = None,
     q_offset: int = 0,
     block_k: int = 512,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Blocked online-softmax attention over KV blocks of `block_k` keys.
 
     The same algorithm as the kernels: fp32 running max, denominator and
     accumulator; masked logits are NEG_INF; the ragged tail is zero-padded.
+    With `return_lse`, returns (out, lse) where lse [B, Hq, Sq] fp32 is each
+    row's log-sum-exp of its scaled logits, ``m + log(l)``: what the
+    backward needs to rebuild the probabilities.
     """
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -100,7 +106,70 @@ def flash_attention_reference(
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vblk)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    l = torch.clamp(l, min=1e-30)
+    out = (acc / l[..., None]).to(q.dtype)
+    if return_lse:
+        return out, m + torch.log(l)
+    return out
+
+
+def _visible(sq: int, sk: int, causal: bool, window: Optional[int], q_offset: int,
+             device) -> torch.Tensor:
+    """[Sq, Sk] bool: key j is visible to query row i (at i + q_offset)."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,    # [B, Hq, Sq, D]
+    k: torch.Tensor,    # [B, Hkv, Sk, D]
+    v: torch.Tensor,    # [B, Hkv, Sk, D]
+    o: torch.Tensor,    # [B, Hq, Sq, D] the forward's output
+    lse: torch.Tensor,  # [B, Hq, Sq] fp32 the forward's row log-sum-exp
+    do: torch.Tensor,   # [B, Hq, Sq, D] gradient of the output
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the types of q, k, v, by the formulas the backward
+    kernel implements, in fp32:
+
+        P  = exp(S - lse) on visible pairs, 0 elsewhere   (S = scale q k^T)
+        dV = P^T dO
+        D  = rowsum(dO * O)
+        dS = P * (dO V^T - D)
+        dQ = scale dS K,   dK = scale dS^T Q
+
+    GQA: dK and dV of a KV head sum over the query heads of its group.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = _scale(sm_scale, d)
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    mask = _visible(sq, sk, causal, window, q_offset, q.device)
+    p = torch.where(mask[None, None], torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    delta = (dof * of).sum(dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.view(b, hkv, group, sk, d).sum(dim=2)
+    dv = dv.view(b, hkv, group, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_reference(
@@ -195,3 +264,81 @@ def rglru_reference(
     sd = scan_dtype or torch.float32
     states, hT = linear_scan_reference(a.to(sd), b.to(sd), h0)
     return states.to(x.dtype), hT.float()
+
+
+# ============================================================ delta compression
+def topk_compress_reference(
+    x: torch.Tensor, k: int, block: int = 1024
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-block magnitude top-k of a 1-D tensor: (vals [nb, k] fp32,
+    idx [nb, k] int32, residual [n] in x's dtype).  The tail block is
+    zero-padded; each block keeps its k largest |x| in descending order,
+    ties to the lowest index (as ``lax.top_k`` and the Pallas kernel's
+    argmax-and-clear do; a stable sort of -|x| gives that order, while
+    ``torch.topk``'s order of ties is unspecified).  The residual is x with
+    the kept entries set to +0."""
+    n = x.shape[0]
+    xb = torch.nn.functional.pad(x, (0, (-n) % block)).view(-1, block)
+    idx = torch.sort(-xb.float().abs(), dim=1, stable=True).indices[:, :k]
+    vals = torch.gather(xb.float(), 1, idx)
+    residual = xb.scatter(1, idx, torch.zeros((), dtype=x.dtype, device=x.device)
+                          .expand(idx.shape))
+    return vals, idx.to(torch.int32), residual.reshape(-1)[:n]
+
+
+def topk_decompress_reference(vals: torch.Tensor, idx: torch.Tensor, n: int,
+                              block: int = 1024) -> torch.Tensor:
+    """[n]: each block's `vals` at `idx`, zeros elsewhere."""
+    out = torch.zeros((vals.shape[0], block), dtype=vals.dtype, device=vals.device)
+    return out.scatter(1, idx.long(), vals).reshape(-1)[:n]
+
+
+# =================================================================== checksums
+FLETCHER_MOD = 65535
+FLETCHER_BLOCK_WORDS = 1024  # a stream is zero-padded to a multiple of this
+
+
+def _words(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Words lo..hi-1 of `x` as int64: little-endian 16-bit words of a
+    uint8 tensor (an odd tail's high byte zero), or the values of an
+    integer tensor of words < 2^16."""
+    if x.dtype != torch.uint8:
+        return x[lo:hi].to(torch.int64) & 0xFFFF
+    b = x[2 * lo: 2 * hi].to(torch.int64)
+    if b.numel() % 2:
+        b = torch.nn.functional.pad(b, (0, 1))
+    return b[0::2] | (b[1::2] << 8)
+
+
+def fletcher32_reference(x: torch.Tensor, chunk_words: int = 1 << 22) -> torch.Tensor:
+    """Fletcher-32 of a stream of 16-bit words zero-padded to a multiple of
+    1024 words, as a 0-d int64 tensor ``(s2 << 16) | s1``: the value of
+    ``fletcher32_padded`` (``statestore/blade.py``) and of the JAX
+    package's ``fletcher32_padded_np``.
+
+    `x` is a uint8 tensor of bytes or an integer tensor of words < 2^16 (the
+    Pallas kernel's contract).  Closed form over the padded length N:
+    ``s1 = sum(w_t)``, ``s2 = sum((N - t) w_t)``, mod 65535, summed in int64
+    over chunks of `chunk_words` words (each term is below 2^32 once
+    ``N - t`` is reduced).
+    """
+    x = x.reshape(-1)
+    n = (x.numel() + 1) // 2 if x.dtype == torch.uint8 else x.numel()
+    n_pad = -(-n // FLETCHER_BLOCK_WORDS) * FLETCHER_BLOCK_WORDS
+    s1 = torch.zeros((), dtype=torch.int64, device=x.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=x.device)
+    for lo in range(0, n, chunk_words):
+        hi = min(lo + chunk_words, n)
+        w = _words(x, lo, hi)
+        t = torch.arange(lo, hi, dtype=torch.int64, device=x.device)
+        s1 = (s1 + w.sum()) % FLETCHER_MOD
+        s2 = (s2 + (((n_pad - t) % FLETCHER_MOD) * w).sum()) % FLETCHER_MOD
+    return (s2 << 16) | s1
+
+
+def fletcher32_wave_reference(chunks) -> torch.Tensor:
+    """[len(chunks)] int64: `fletcher32_reference` of each chunk (uint8
+    tensors, each its own zero-padded stream)."""
+    if not chunks:
+        return torch.empty(0, dtype=torch.int64)
+    return torch.stack([fletcher32_reference(c) for c in chunks])

@@ -1,1 +1,2 @@
-"""Entry points: the serving CLI (``python -m repro_torch.launch.serve``)."""
+"""Entry points: the serving CLI (``python -m repro_torch.launch.serve``) and
+the training CLI (``python -m repro_torch.launch.train``)."""

@@ -6,6 +6,7 @@ Layers are grouped as in ``repro.models.model``: identical repeating
 llama3.2-3b).  JAX scans over that axis; the port loops over its slices
 in Python.  Entry points:
 
+  loss(params, batch)                 - training forward + cross-entropy loss
   forward(params, batch)              - full-sequence logits
   prefill(params, batch)              - full-sequence forward, returns cache
   decode_step(params, cache, tokens)  - one token with the KV cache
@@ -177,6 +178,19 @@ class DecoderLM:
         if cfg.tie_embeddings:
             return x @ params["embed"].t()
         return x @ params["lm_head"]
+
+    # ------------------------------------------------------------- losses
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy: fp32 logits from the model-dtype
+        head, then ``mean(logsumexp - picked logit)``, as the JAX package.
+        Differentiable: with grad enabled, attention runs the differentiable
+        flash route (``kernels/ops.py``)."""
+        x = self._embed(params, batch)
+        x = self._run_blocks(params, x, "train", None, None)
+        logits = self._head(params, x).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+        return torch.mean(lse - ll)
 
     def forward(self, params, batch):
         x = self._embed(params, batch)

@@ -3,7 +3,8 @@
 The same blades, API and on-disk bytes as ``repro.statestore.blade``:
 
     append(log_record)        one-sided log append (checksummed)
-    put(name, bytes)          data-area write
+    put(name, bytes[, csum])  data-area write (csum: the bytes' checksum,
+                              when the caller computed it, e.g. on the card)
     get(name) / exists(name)  data-area read
     set_root(value)/get_root  8-byte atomic root pointer (version swap)
     delete(name)              GC
@@ -14,13 +15,17 @@ The same blades, API and on-disk bytes as ``repro.statestore.blade``:
   * ``MemoryBlade`` — dict-backed, for fast unit tests.
 
 Every log record and object carries a Fletcher-32 checksum; a torn or
-corrupt log tail is dropped on recovery (paper §4.2).
+corrupt log tail is dropped on recovery (paper §4.2).  ``get`` verifies an
+object's checksum on the host whoever computed it, so a wrong checksum from
+the card fails loudly on the first read.  ``FileBlade`` adds up the seconds
+its durable writes spend writing and in ``fsync`` (``io_totals``).
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -63,6 +68,35 @@ def fletcher32_padded(data: bytes) -> int:
     return (s2 << 16) | s1
 
 
+def fletcher32_join(prefix: bytes, n_body: int, body_checksum: int) -> int:
+    """``fletcher32_padded(prefix + body)`` from the prefix's bytes, the
+    body's length and the body's own ``fletcher32_padded``: how a tensor
+    checksummed on the card gets the checksum of its ``.npy`` object.
+
+    The prefix must have an even length (an ``.npy`` header is a multiple of
+    64 bytes), so the body's words keep their alignment.  With the prefix's
+    h words p_t, the body's words b_u, and N the padded length of the whole:
+    s1 = sum p + sum b, and s2 = sum (N - t) p_t + (N - h) sum b - sum u b_u,
+    where the body's checksum gives sum u b_u = N_b sum b - s2_b (N_b the
+    body's own padded length), all mod 65535.
+    """
+    if len(prefix) % 2:
+        raise ValueError("fletcher32_join: the prefix must have an even length")
+    m = FLETCHER_MOD
+    h = len(prefix) // 2
+    n_body_words = (n_body + 1) // 2
+    n_pad = -(-(h + n_body_words) // _BLOCK_WORDS) * _BLOCK_WORDS
+    nb_pad = max(1, -(-n_body_words // _BLOCK_WORDS)) * _BLOCK_WORDS
+    b1, b2 = body_checksum & 0xFFFF, body_checksum >> 16
+    sum_ub = (nb_pad * b1 - b2) % m
+    p = np.frombuffer(prefix, dtype="<u2").astype(np.int64)
+    p1 = int(p.sum()) % m
+    p2 = int(((n_pad - np.arange(h, dtype=np.int64)) % m) @ p) % m
+    s1 = (p1 + b1) % m
+    s2 = (p2 + (n_pad - h) * b1 - sum_ub) % m
+    return (s2 << 16) | s1
+
+
 def _checksum(data: bytes) -> int:
     return fletcher32_padded(data)
 
@@ -73,13 +107,17 @@ class Blade:
     def append(self, payload: bytes) -> int: ...
     def scan_log(self) -> Iterator[Tuple[int, bytes]]: ...
     def truncate_log(self, upto_seq: int) -> None: ...
-    def put(self, name: str, data: bytes) -> None: ...
+    def put(self, name: str, data: bytes, checksum: Optional[int] = None) -> None: ...
     def get(self, name: str) -> bytes: ...
     def exists(self, name: str) -> bool: ...
     def delete(self, name: str) -> None: ...
     def list(self, prefix: str = "") -> List[str]: ...
     def set_root(self, value: int) -> None: ...
     def get_root(self) -> int: ...
+
+    def io_totals(self) -> Dict[str, float]:
+        """Seconds spent writing and in fsync (none for a blade in memory)."""
+        return {"write_s": 0.0, "fsync_s": 0.0}
 
 
 class MemoryBlade(Blade):
@@ -103,7 +141,8 @@ class MemoryBlade(Blade):
     def truncate_log(self, upto_seq: int) -> None:
         self.log = [(s, p) for s, p in self.log if s > upto_seq]
 
-    def put(self, name: str, data: bytes) -> None:
+    def put(self, name: str, data: bytes, checksum: Optional[int] = None) -> None:
+        """Keeps no checksum: `checksum` is accepted and unused."""
         for m in self.mirrors:
             m.objects[name] = data
         self.objects[name] = data
@@ -141,6 +180,21 @@ class FileBlade(Blade):
         self._logf = os.path.join(path, "log", "oplog.bin")
         self._seq = self._recover_seq()
         self.mirrors = [FileBlade(p) for p in (mirrors or [])]
+        self.io = {"write_s": 0.0, "fsync_s": 0.0}  # this blade's durable writes
+
+    def io_totals(self) -> Dict[str, float]:
+        """Seconds spent writing and in fsync, by this blade and its mirrors."""
+        return {k: v + sum(m.io_totals()[k] for m in self.mirrors) for k, v in self.io.items()}
+
+    def _durable_write(self, path: str, data: bytes, mode: str = "wb") -> None:
+        t0 = time.perf_counter()
+        with open(path, mode) as f:
+            f.write(data)
+            f.flush()
+            t1 = time.perf_counter()
+            os.fsync(f.fileno())
+        self.io["write_s"] += t1 - t0
+        self.io["fsync_s"] += time.perf_counter() - t1
 
     # ------------------------------------------------------------------ log
     def _recover_seq(self) -> int:
@@ -198,15 +252,14 @@ class FileBlade(Blade):
     def _obj_path(self, name: str) -> str:
         return os.path.join(self.path, "data", name.replace("/", "__"))
 
-    def put(self, name: str, data: bytes) -> None:
-        rec = struct.pack("<I", _checksum(data)) + data
+    def put(self, name: str, data: bytes, checksum: Optional[int] = None) -> None:
+        """Writes the object with `checksum`, or with the checksum computed
+        here when none is given; every mirror gets the same one."""
+        csum = _checksum(data) if checksum is None else int(checksum)
         for m in self.mirrors:
-            m.put(name, data)
+            m.put(name, data, csum)
         tmp = self._obj_path(name) + ".tmp"
-        with open(tmp, "wb") as f:
-            f.write(rec)
-            f.flush()
-            os.fsync(f.fileno())
+        self._durable_write(tmp, struct.pack("<I", csum) + data)
         os.replace(tmp, self._obj_path(name))
 
     def get(self, name: str) -> bytes:
@@ -244,10 +297,7 @@ class FileBlade(Blade):
         for m in self.mirrors:
             m.set_root(value)
         tmp = os.path.join(self.path, "ROOT.tmp")
-        with open(tmp, "w") as f:
-            f.write(str(int(value)))
-            f.flush()
-            os.fsync(f.fileno())
+        self._durable_write(tmp, str(int(value)).encode())
         os.replace(tmp, os.path.join(self.path, "ROOT"))
 
     def get_root(self) -> int:

@@ -8,8 +8,7 @@ The same protocol and on-blade bytes as ``repro.statestore.store``:
                           swap — all-or-nothing by construction
   * operation log      -> step log: small records appended every step
   * batching           -> delta commits: top-k-compressed parameter deltas
-                          against a base version (read here; written by the
-                          training side)
+                          against a base version
   * multi-version+CAS  -> every commit is a new immutable version id; the
                           ROOT pointer names the latest durable version;
                           readers pin any committed version (SWMR)
@@ -17,7 +16,10 @@ The same protocol and on-blade bytes as ``repro.statestore.store``:
 Tensors are ``.npy`` objects.  bfloat16 is stored as its uint16 bits with
 manifest dtype ``"bfloat16"``, as the JAX package stores it; the port reads
 and writes those bits with torch, so it needs no ``ml_dtypes``.  Commits
-take torch tensors or numpy arrays; reads return CPU torch tensors.
+take torch tensors or numpy arrays; reads return CPU torch tensors.  A
+commit may bring each object's checksum, computed on the card over the
+tensor's bytes; the store folds the ``.npy`` header into it
+(``blade.fletcher32_join``) and the blade writes it as it is.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from ..tree import dtype_name, from_numpy, to_numpy
-from .blade import Blade
+from .blade import Blade, fletcher32_join
 
 
 def _tensor_key(version: int, name: str, shard: int) -> str:
@@ -46,6 +48,13 @@ def _npy_bytes(x: Any) -> bytes:
     buf = io.BytesIO()
     np.save(buf, to_numpy(x), allow_pickle=False)
     return buf.getvalue()
+
+
+def _delta_payload(d: Dict[str, Any]) -> np.ndarray:
+    """The delta object's array: vals then idx, both as float32 words, as the
+    JAX store writes it."""
+    return np.concatenate([to_numpy(d["vals"]).reshape(-1).view(np.float32),
+                           to_numpy(d["idx"]).reshape(-1).view(np.float32)])
 
 
 def _npy_load(data: bytes) -> np.ndarray:
@@ -82,26 +91,55 @@ class AsymStore:
         version: int,
         tensors: Dict[str, List[Any]],
         meta: Optional[Dict[str, Any]] = None,
+        base_version: Optional[int] = None,
+        deltas: Optional[Dict[str, Any]] = None,
+        checksums: Optional[Dict[str, List[int]]] = None,
     ) -> None:
-        """All-or-nothing commit of full tensors (name -> list of shards).
+        """All-or-nothing commit.
 
-        Ordering: shard objects first, MANIFEST second, ROOT swap last — a
-        crash at any point leaves either the old version (no manifest / no
-        root) or the complete new one.
+        `tensors`: name -> list of full shards.  `deltas`: name -> a top-k
+        delta against `base_version` ({"vals" [nb, k] fp32, "idx" [nb, k]
+        int32, "n", "block", "dtype"}), one object each.  `checksums`: name ->
+        the Fletcher-32 of each object's body (a shard's bytes; a delta's
+        vals-then-idx words), when the caller computed them; the blade
+        computes the rest.  Ordering: shard objects first, MANIFEST second,
+        ROOT swap last — a crash at any point leaves either the old version
+        (no manifest / no root) or the complete new one.
         """
+        checksums = checksums or {}
+
+        def put(name: str, i: int, arr: Any) -> None:
+            data = _npy_bytes(arr)
+            csum = None
+            if name in checksums:
+                n_body = to_numpy(arr).nbytes
+                csum = fletcher32_join(data[:len(data) - n_body], n_body, checksums[name][i])
+            self.blade.put(_tensor_key(version, name, i), data, csum)
+
         entries: Dict[str, Any] = {}
         for name, shards in (tensors or {}).items():
             for i, arr in enumerate(shards):
-                self.blade.put(_tensor_key(version, name, i), _npy_bytes(arr))
+                put(name, i, arr)
             entries[name] = {
                 "kind": "full",
                 "n_shards": len(shards),
                 "dtype": dtype_name(shards[0]),
                 "shard_shape": list(shards[0].shape),
             }
+        for name, d in (deltas or {}).items():
+            put(name, 0, _delta_payload(d))
+            entries[name] = {
+                "kind": "delta",
+                "base": base_version,
+                "n": int(d["n"]),
+                "k": int(d["vals"].shape[1]),
+                "nb": int(d["vals"].shape[0]),
+                "block": int(d["block"]),
+                "dtype": str(d["dtype"]),
+            }
         manifest = {
             "version": version,
-            "base": None,
+            "base": base_version,
             "time": time.time(),
             "meta": meta or {},
             "tensors": entries,
@@ -126,11 +164,11 @@ class AsymStore:
         nbk = ent["nb"] * ent["k"]
         vals = raw[:nbk].reshape(ent["nb"], ent["k"])
         idx = raw[nbk:].view(np.int32).reshape(ent["nb"], ent["k"])
-        block = ent["block"]
-        for b in range(ent["nb"]):
-            sel = idx[b] + b * block
-            ok = sel < ent["n"]
-            flat[sel[ok]] += vals[b][ok]
+        # all blocks at once: a block's indices are distinct and blocks do not
+        # overlap, so this is the JAX store's per-block loop
+        sel = idx + (np.arange(ent["nb"], dtype=np.int64) * ent["block"])[:, None]
+        ok = sel < ent["n"]
+        flat[sel[ok]] += vals[ok]
         out = []
         off = 0
         for s in base:

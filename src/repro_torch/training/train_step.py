@@ -1,0 +1,114 @@
+"""train_step factory: loss -> grads (with microbatch accumulation) ->
+optional top-k gradient sparsification (error feedback) -> clipped update.
+
+The port of ``repro.training.train_step``.  TrainState is a plain dict
+(``params``, ``opt``, ``step`` and, with gradient sparsification,
+``residual``), so its names in the store are the JAX package's pytree paths
+and a state committed by either package resumes in the other.  The step
+updates the state in place and returns it (see ``optimizer.py``): the
+caller's state is the new one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from ..models.model import DecoderLM
+from ..tree import flatten_named, tree_map, tree_map_named
+from .optimizer import OptConfig, apply_opt, init_opt_state
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    opt: OptConfig = OptConfig()
+    accum_steps: int = 1              # microbatch gradient accumulation
+    grad_topk_frac: float = 0.0       # >0: sparsify grads (error feedback)
+
+
+def _state_of(params: Tree, tcfg: TrainConfig, device) -> Dict[str, Any]:
+    state = {
+        "params": params,
+        "opt": init_opt_state(params, tcfg.opt),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    if tcfg.grad_topk_frac > 0:
+        state["residual"] = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device), params)
+    return state
+
+
+def init_train_state(model: DecoderLM, generator: torch.Generator,
+                     tcfg: TrainConfig) -> Dict[str, Any]:
+    """Fresh weights (drawn on the generator's device) and zero optimizer state."""
+    return _state_of(model.init(generator), tcfg, generator.device)
+
+
+def abstract_train_state(model: DecoderLM, tcfg: TrainConfig) -> Dict[str, Any]:
+    """The train state's names, shapes and dtypes, as ``meta`` tensors: the
+    template ``CheckpointManager.restore`` fills."""
+    return _state_of(model.abstract(), tcfg, "meta")
+
+
+def _sparsify(grads: List[torch.Tensor], residual: List[torch.Tensor], frac: float
+              ) -> List[torch.Tensor]:
+    """Per-tensor magnitude top-k with error feedback: the un-transmitted
+    remainder is carried to the next step (Lin et al., deep gradient
+    compression), written into `residual` in place.  The threshold is the
+    k-th largest magnitude (``torch.topk`` here, ``lax.top_k`` in the JAX
+    package, neither a kernel); every entry at or above it is sent."""
+    sent = []
+    for g, r in zip(grads, residual):
+        flat = (g.float() + r).reshape(-1)
+        k = max(1, int(flat.numel() * frac))
+        thresh = torch.topk(flat.abs(), k).values[-1]
+        s = torch.where(flat.abs() >= thresh, flat, torch.zeros((), device=flat.device))
+        r.copy_((flat - s).view(r.shape))
+        sent.append(s.view(g.shape))
+    return sent
+
+
+def make_train_step(model: DecoderLM, tcfg: TrainConfig
+                    ) -> Callable[[Dict[str, Any], Dict[str, torch.Tensor]],
+                                  Tuple[Dict[str, Any], Dict[str, torch.Tensor]]]:
+    """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
+    ``loss`` and ``grad_norm`` are 0-d tensors on the state's device."""
+
+    def value_and_grad(leaves: List[Tuple[str, torch.Tensor]], params: Tree, batch
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        with torch.enable_grad():
+            live = {name: p.detach().requires_grad_(True) for name, p in leaves}
+            loss = model.loss(tree_map_named(lambda name, _: live[name], params), batch)
+            grads = torch.autograd.grad(loss, list(live.values()))
+        return loss.detach(), list(grads)
+
+    def train_step(state, batch):
+        params = state["params"]
+        leaves = flatten_named(params)
+        if tcfg.accum_steps > 1:
+            n = tcfg.accum_steps
+            loss = torch.zeros((), dtype=torch.float32, device=state["step"].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for _, p in leaves]
+            for i in range(n):
+                mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
+                      for k, v in batch.items()}
+                l_i, g_i = value_and_grad(leaves, params, mb)
+                loss = loss + l_i / n
+                grads = [a + g.float() / n for a, g in zip(grads, g_i)]
+                del g_i
+        else:
+            loss, grads = value_and_grad(leaves, params, batch)
+
+        if tcfg.grad_topk_frac > 0:
+            res = [r for _, r in flatten_named(state["residual"])]
+            grads = _sparsify(grads, res, tcfg.grad_topk_frac)
+        gnorm = apply_opt(params, grads, state["opt"], tcfg.opt, state["step"])
+        state["step"] = state["step"] + 1
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step

@@ -5,23 +5,35 @@ no CUDA device is available.  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances are those of tests/test_kernels.py:19-20 (attention) and
-:79-80,93-94 (the scans in fp32; in bf16 they take the attention's).  This
-file imports no JAX: the machine with the card has none.
+Tolerances are those of tests/test_kernels.py:19-20 (attention, forward
+and backward) and :79-80,93-94 (the scans in fp32; in bf16 they take the
+attention's).  Top-k and the checksums are exact, and so are two runs of
+the attention backward and a replayed train step.  This file imports no
+JAX: the machine with the card has none.
 """
 
 import dataclasses
+import os
 
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.data import DataConfig, SyntheticPipeline
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fb
+from repro_torch.kernels import log_checksum as lc
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as rs
+from repro_torch.kernels import topk_compress as tk
 from repro_torch.models import DecoderLM
+from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade, fletcher32_padded
+from repro_torch.training import (OptConfig, TrainConfig, Trainer, TrainerConfig,
+                                  init_train_state, make_train_step)
+from repro_torch.training.trainer import deterministic_cuda
+from repro_torch.tree import flatten_named
 
 pytestmark = pytest.mark.cuda
 
@@ -33,6 +45,9 @@ SCAN_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # cuBLAS reads this when it starts, which is inside the first test that
+    # gets here; the deterministic train steps need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -203,3 +218,144 @@ def test_recurrent_model_kernel_path_matches_plain_path(cuda, arch, prompt, coun
     # the parity bound of chip_smoke.py: the random model's attention logits
     # are large (see tests/test_torch_models.py), so hold the logits, not ulps
     torch.testing.assert_close(got, run("torch"), atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
+    (2, 4, 2, 130, 130, 64),      # GQA, not a multiple of the tile
+    (1, 8, 1, 50, 200, 128),      # MQA, Sk > Sq
+    (1, 6, 2, 100, 100, 128),     # group of 3
+    (1, 2, 2, 70, 70, 32),        # MHA, head_dim 32
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 17)])
+def test_flash_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, hq, hkv, sq, sk, d,
+                                                                 dtype, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(sq * sk + d)
+    q = _randn(gen, (b, hq, sq, d), dtype)
+    k = _randn(gen, (b, hkv, sk, d), dtype)
+    v = _randn(gen, (b, hkv, sk, d), dtype)
+    do = _randn(gen, (b, hq, sq, d), dtype)
+    kw = dict(causal=causal, window=window, q_offset=sk - sq)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    _, want_lse = ref.flash_attention_reference(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    n = fb.launches
+    got = fb.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    again = fb.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    assert fb.launches == n + 2
+    want = ref.flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype], rtol=1e-2)
+
+
+def test_flash_autograd_on_the_card_runs_both_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    leaves = [_randn(gen, s, torch.float32).requires_grad_(True)
+              for s in ((1, 4, 96, 64), (1, 2, 96, 64), (1, 2, 96, 64))]
+    f0, b0 = fa.launches, fb.launches
+    out = fa.flash_attention_trainable(*leaves, causal=True)
+    out.backward(torch.ones_like(out))
+    assert (fa.launches - f0, fb.launches - b0) == (1, 1)
+    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+    ref_out = fa.flash_attention_trainable(*plain, causal=True, use_kernels=False)
+    ref_out.backward(torch.ones_like(ref_out))
+    for a, p in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, p.grad, atol=TOL[torch.float32], rtol=1e-2)
+
+
+@pytest.mark.parametrize("n,k", [(5000, 10), (1 << 20, 10), (3000, 37), (2049, 1024), (100, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_equals_plain(cuda, n, k, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    x = _randn(gen, (n,), dtype)
+    x[3:40] = 0
+    x[100::97] = 2.5
+    x[150::193] = -2.5
+    c = tk.launches
+    got = tk.topk_compress(x, k)
+    assert tk.launches == c + 1
+    for g, w in zip(got, ref.topk_compress_reference(x, k)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nbytes", [0, 1, 3, 2047, 2048, 2049, 4096 + 7, (1 << 22) + 1])
+def test_fletcher32_kernel_equals_host_checksum(cuda, nbytes):
+    gen = torch.Generator(device=cuda).manual_seed(nbytes)
+    data = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=cuda, generator=gen)
+    c = lc.launches
+    got = int(lc.fletcher32(data))
+    assert lc.launches == c + 1
+    assert got == fletcher32_padded(data.cpu().numpy().tobytes()) == int(
+        ref.fletcher32_reference(data))
+
+
+def test_fletcher32_wave_kernel_equals_host_checksums(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    chunks = [torch.randint(0, 256, (n,), dtype=torch.uint8, device=cuda, generator=gen)
+              for n in (5, 0, 2048, 7001, 65536, 3, 1 << 20)]
+    chunks.append(chunks[3][1:])                    # not 16-byte aligned
+    chunks.append(lc.as_bytes(torch.ones(33, 7, dtype=torch.bfloat16, device=cuda)))
+    c = lc.launches
+    got = lc.fletcher32_wave(chunks)
+    assert lc.launches == c + 1
+    assert got.tolist() == [fletcher32_padded(t.cpu().numpy().tobytes()) for t in chunks]
+
+
+def test_train_step_replays_bitwise(cuda):
+    """The same state and batch give the same bits twice: the attention
+    kernels use no atomics, and the rest runs under deterministic mode."""
+    with deterministic_cuda():
+        _replay_train_step(cuda)
+
+
+def _replay_train_step(cuda):
+    cfg = get_smoke_config("llama3.2-3b")
+    model = DecoderLM(cfg)
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticPipeline(
+        DataConfig(vocab_size=cfg.vocab_size, global_batch=4, seq_len=64)).batch_at(0).items()}
+    step = make_train_step(model, tcfg)
+    outs = []
+    for _ in range(2):
+        state = init_train_state(model, torch.Generator(device=cuda).manual_seed(0), tcfg)
+        f0, b0 = fa.launches, fb.launches
+        state, metrics = step(state, batch)
+        assert (fa.launches - f0, fb.launches - b0) == (cfg.n_layers, cfg.n_layers)
+        outs.append([t.cpu() for _, t in flatten_named(state)] + [metrics["loss"].cpu()])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_device_checksums_are_accepted_by_the_blade(cuda, tmp_path):
+    """A commit of state on the card: one fletcher32_wave launch checksums
+    its objects there, and FileBlade.get verifies them on the host, on the
+    primary and the mirror."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state = {"w": _randn(gen, (300, 7), torch.bfloat16), "b": _randn(gen, (1001,), torch.float32),
+             "step": torch.tensor(3, dtype=torch.int32, device=cuda)}
+    ckpt = CheckpointManager(AsymStore(FileBlade(str(tmp_path / "b"),
+                                                 mirrors=[str(tmp_path / "m")])),
+                             delta_every=2, delta_topk_frac=0.01)
+    c, t = lc.launches, tk.launches
+    ckpt.save_full(1, state)
+    state["b"].add_(1.0)
+    ckpt.save_delta(2, state)
+    assert (lc.launches - c, tk.launches - t) == (2, 2)
+    for path in ("b", "m"):
+        store = AsymStore(FileBlade(str(tmp_path / path)))
+        assert torch.equal(store.read_tensor(1, "w")[0], state["w"].cpu())
+        assert torch.equal(store.read_tensor(2, "b")[0], ckpt._recon["b"])
+    assert all(v.device.type == "cpu" for v in ckpt._recon.values())  # the view is on the host
+
+
+def test_trainer_runs_deterministic_steps_and_gives_the_mode_back(cuda):
+    """Trainer.run turns deterministic algorithms on for its steps only: the
+    process's setting is the same before and after."""
+    cfg = get_smoke_config("llama3.2-3b")
+    before = torch.are_deterministic_algorithms_enabled()
+    tr = Trainer(DecoderLM(cfg), TrainConfig(opt=OptConfig(lr=1e-3)),
+                 DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=32), device=cuda)
+    assert torch.are_deterministic_algorithms_enabled() == before
+    tr.init()
+    out = tr.run(TrainerConfig(total_steps=2))
+    assert out["final_step"] == 2 and torch.are_deterministic_algorithms_enabled() == before
