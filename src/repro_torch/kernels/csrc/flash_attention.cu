@@ -21,7 +21,9 @@
 // (25.8 GFLOP against 67 MB for llama3.2-3b, B=4, S=1024, causal), and this
 // kernel runs its products on CUDA cores, not on the tensor cores (wgmma) that
 // the bound assumes.  Register tiling (16 FMAs per 8 shared-memory loads)
-// keeps it off the shared-memory limit; wgmma and TMA are later work.
+// keeps it off the shared-memory limit.  The wrapper sends it fp32 inputs
+// only, which it keeps in full fp32; bf16 goes to the wgmma/TMA kernel,
+// flash_attention_sm90.cu (wgmma on fp32 is TF32, too coarse for fp32).
 //
 // Head dims 32, 64, 128 and 256 (recurrentgemma-9b's local attention).  At
 // D=256 the tiles take 213,760 bytes of shared memory, inside the 232,448 a

@@ -31,9 +31,10 @@
 // products a tile pair against the forward's two; dQ's kernel recomputes S and
 // dP, so seven are issued), compute-bound on the tensor cores' 989 TFLOP/s at
 // the training shape.  Like the forward it runs on CUDA cores with register
-// tiling; wgmma/TMA are later work.  Head dims 32, 64 and 128: at D=256 the four
-// 64-row fp32 tiles would take 263 KB of shared memory, over the 227 KB a block
-// may have.
+// tiling; the wrapper sends it fp32 inputs only, and bf16 goes to the wgmma/TMA
+// kernels of flash_attention_bwd_sm90.cu.  Head dims 32, 64 and 128: at D=256
+// the four 64-row fp32 tiles would take 263 KB of shared memory, over the 227 KB
+// a block may have.
 #include "tile.cuh"
 
 namespace {

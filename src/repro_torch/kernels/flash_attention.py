@@ -1,26 +1,34 @@
-"""Flash attention: the hand-written CUDA forward, its gradient, and their
-plain versions.
+"""Flash attention: the hand-written CUDA forward kernels, the gradient, and
+their plain versions.
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention``, the Pallas
 TPU kernel (FlashAttention-2 forward with causal, local-window and
 ``q_offset`` masking, GQA via KV head ``h // group``, fp32 softmax state).
-The kernel is ``csrc/flash_attention.cu``; its plain PyTorch version is
-``ref.flash_attention_reference``.
+Its plain PyTorch version is ``ref.flash_attention_reference``.  Two
+kernels take the work, by dtype alone (``_route``):
+
+  * bf16 -> ``"wgmma"``, ``csrc/flash_attention_sm90.cu``: products on the
+    tensor cores (``wgmma``), K/V tiles by TMA into a two-stage ring guarded
+    by mbarriers, P rounded to bf16 before P V, as FlashAttention-2/3 do;
+  * fp32 -> ``"cuda_core"``, ``csrc/flash_attention.cu``: register-tiled
+    products on CUDA cores in full fp32 (``wgmma`` on fp32 is TF32, about
+    three decimal digits, which the fp32 tolerance of 2e-5 rules out).
+
+Nothing falls back from one route to the other.
 
 What bounds it on the H100: at the serving prefill shape (llama3.2-3b,
 B=4, S=1024, causal, bf16) one launch does 25.8 GFLOP on 67 MB, so the
 bound is the tensor cores' 989 TFLOP/s (about 26 us), not the 3.35 TB/s of
-device memory (about 20 us).  The design: one block per 64 query rows,
-K/V tiles in shared memory, loop bounds taken from the masks so masked
-tiles are never read, register-tiled products on CUDA cores.  It runs well
-above the bound; ``wgmma``/TMA are later work (see PERF.md for its times).
+device memory (about 20 us).  Both kernels walk only the KV tiles the masks
+leave visible.  PERF.md has their times.
 
 Training differentiates through ``FlashAttention``, a ``torch.autograd.Function``
 whose forward also writes each row's log-sum-exp and whose backward is the
 hand-written kernel of ``flash_attention_bwd`` (the JAX package has no
 backward kernel; it differentiates its XLA reference).
 
-``launches`` counts forward kernel launches; the plain path never adds to it.
+``launches`` counts forward kernel launches, ``launches_by_route`` the same
+launches by route; the plain path never adds to either.
 """
 
 from __future__ import annotations
@@ -36,19 +44,37 @@ from . import flash_attention_bwd as _bwd
 from .ref import flash_attention_backward_reference, flash_attention_reference
 
 HEAD_DIMS = (32, 64, 128, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wgmma", "cuda_core")
 
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention
+def _route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes (dtype, head_dim): "wgmma" for bf16, "cuda_core"
+    for fp32; raises for anything else."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {head_dim} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise ValueError(f"flash_attention: dtype {dtype}; float32 or bfloat16")
+
+
+def _fn(route: str):
+    """The C entry point of `route`'s library, its argument types set."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if route == "wgmma":
+        fn = _build.load("flash_attention_sm90").repro_flash_attention_sm90
+        types = [p] * 5 + [i] * 6 + [f, i, i, i, p]
+    else:
+        fn = _build.load("flash_attention").repro_flash_attention
+        types = [p] * 5 + [i] * 7 + [f, i, i, i, p]
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.argtypes = types
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def flash_attention(
@@ -81,15 +107,16 @@ def flash_attention(
     hkv, sk = k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"flash_attention: {hq} query heads are not a multiple of {hkv} KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    route = _route(q.dtype, d)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          "float32 or bfloat16, all the same")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        # TMA (the wgmma route) also needs a 16-byte aligned base and row
+        # strides in multiples of 16 bytes: d * 2 bytes is, for every head dim
+        if not t.is_contiguous() or t.data_ptr() % 16 or (d * t.element_size()) % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
@@ -102,15 +129,16 @@ def flash_attention(
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None, _DTYPE_CODES[q.dtype],
-            b, hq, hkv, sq, sk, d, scale, int(bool(causal)), int(window or 0), int(q_offset),
-            stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if return_lse else None)
+        dtype_code = () if route == "wgmma" else (0,)  # the CUDA-core kernel: 0 = float32
+        err = _fn(route)(*ptrs, *dtype_code, b, hq, hkv, sq, sk, d, scale, int(bool(causal)),
+                         int(window or 0), int(q_offset), stream)
     if err:
-        raise RuntimeError(f"flash_attention: kernel launch failed with cudaError {err}")
+        raise RuntimeError(f"flash_attention: {route} kernel launch failed with cudaError {err}")
     global launches
     launches += 1
+    launches_by_route[route] += 1
     return (out, lse) if return_lse else out
 
 

@@ -1,20 +1,30 @@
-"""Flash attention backward: the hand-written CUDA kernel and its plain version.
+"""Flash attention backward: the hand-written CUDA kernels and their plain version.
 
 The JAX package has no backward kernel for ``repro/kernels/flash_attention.py:
 flash_attention``: it differentiates its XLA reference.  On the card the
-port's forward is a kernel, so its gradient is one too: ``csrc/
-flash_attention_bwd.cu``, a FlashAttention-2 backward (a pre-pass for
-``D = rowsum(dO * O)``, one block per KV tile for dK/dV, one per q tile for
-dQ, no atomics, so two runs give the same bits).  Its plain PyTorch version
-is ``ref.flash_attention_backward_reference``, the same formulas.
+port's forward is a kernel, so its gradient is one too, a FlashAttention-2
+backward in three launches (a pre-pass for ``D = rowsum(dO * O)``, one block
+per KV tile for dK/dV, one per q tile for dQ, no atomics, so two runs give
+the same bits).  Its plain PyTorch version is
+``ref.flash_attention_backward_reference``, the same formulas.  Two kernels
+take the work, by dtype alone (``_route``):
+
+  * bf16 -> ``"wgmma"``, ``csrc/flash_attention_bwd_sm90.cu``: all five
+    products on the tensor cores (``wgmma``), tiles by TMA, P and dS
+    rounded to bf16 before their products;
+  * fp32 -> ``"cuda_core"``, ``csrc/flash_attention_bwd.cu``: register-tiled
+    products on CUDA cores in full fp32.
+
+Nothing falls back from one route to the other.
 
 What bounds it on the H100: the tensor cores.  At llama3.2-3b's training
 shape (B=4, S=1024, causal, bf16) it does 2.5x the forward's 25.8 GFLOP,
-about 65 us at 989 TFLOP/s; it runs its products on CUDA cores (see the
-source and PERF.md).  Head dims 32, 64 and 128.
+about 65 us at 989 TFLOP/s (see the sources and PERF.md).  Head dims 32, 64
+and 128 on both routes.
 
-``launches`` counts kernel launches (one per backward: the C entry point
-issues the three kernels); the plain path never adds to it.
+``launches`` counts backward calls (one per backward: the C entry point
+issues the three kernels), ``launches_by_route`` the same calls by route;
+the plain path never adds to either.
 """
 
 from __future__ import annotations
@@ -29,19 +39,38 @@ from . import _build
 from .ref import flash_attention_backward_reference
 
 HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wgmma", "cuda_core")
+SQ_PAD = 128  # the wgmma route's scratch pads each head's rows to a multiple of this
 
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention_bwd")
-    fn = lib.repro_flash_attention_bwd
+def _route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes (dtype, head_dim): "wgmma" for bf16, "cuda_core"
+    for fp32; raises for anything else."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_backward: head_dim {head_dim} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise ValueError(f"flash_attention_backward: dtype {dtype}; float32 or bfloat16")
+
+
+def _fn(route: str):
+    """The C entry point of `route`'s library, its argument types set."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if route == "wgmma":
+        fn = _build.load("flash_attention_bwd_sm90").repro_flash_attention_bwd_sm90
+        types = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, i, p]
+    else:
+        fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
+        types = [p] * 10 + [i] * 7 + [ctypes.c_float, i, i, i, p]
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, i, i, p]
+        fn.argtypes = types
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def flash_attention_backward(
@@ -75,9 +104,8 @@ def flash_attention_backward(
     if hq % hkv:
         raise ValueError(f"flash_attention_backward: {hq} query heads are not a multiple of "
                          f"{hkv} KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_backward: head_dim {d} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+    route = _route(q.dtype, d)
+    if any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise ValueError("flash_attention_backward: q, k, v, o, do must share one dtype, "
                          f"float32 or bfloat16; got {[t.dtype for t in (q, k, v, o, do)]}")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq):
@@ -86,7 +114,10 @@ def flash_attention_backward(
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)):
         if t.device != q.device:
             raise ValueError(f"flash_attention_backward: {name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        # TMA (the wgmma route) also needs the rows of q, k, v, o and dO
+        # strided in multiples of 16 bytes: d * 2 bytes is, for every head dim
+        row_bytes = d * t.element_size() if t.dim() == 4 else 16
+        if not t.is_contiguous() or t.data_ptr() % 16 or row_bytes % 16:
             raise ValueError(f"flash_attention_backward: {name} must be contiguous and "
                              "16-byte aligned")
     for name, t in (("o", o), ("do", do)):
@@ -100,17 +131,25 @@ def flash_attention_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if route == "wgmma":  # (lse * log2 e, D) of each row, the rows padded
+        scratch = torch.empty(2 * b * hq * (-(-sq // SQ_PAD) * SQ_PAD), dtype=torch.float32,
+                              device=q.device)
+        dtype_code = ()
+    else:  # D of each row; the CUDA-core kernel's dtype code 0 = float32
+        scratch = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+        dtype_code = (0,)
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().repro_flash_attention_bwd(
+        err = _fn(route)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d, scale, int(bool(causal)),
-            int(window or 0), int(q_offset), stream)
+            do.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *dtype_code, b, hq, hkv, sq, sk, d, scale, int(bool(causal)), int(window or 0),
+            int(q_offset), stream)
     if err:
-        raise RuntimeError(f"flash_attention_backward: kernel launch failed with cudaError {err}")
+        raise RuntimeError(f"flash_attention_backward: {route} kernel launch failed with "
+                           f"cudaError {err}")
     global launches
     launches += 1
+    launches_by_route[route] += 1
     return dq, dk, dv

@@ -7,9 +7,11 @@ no CUDA device is available.  On a machine with a card:
 
 Tolerances are those of tests/test_kernels.py:19-20 (attention, forward
 and backward) and :79-80,93-94 (the scans in fp32; in bf16 they take the
-attention's).  Top-k and the checksums are exact, and so are two runs of
-the attention backward and a replayed train step.  This file imports no
-JAX: the machine with the card has none.
+attention's).  The attention wrappers route by dtype: bf16 to the wgmma
+kernels, fp32 to the CUDA-core ones; ROUTE says which, and the tests hold
+each launch to it through ``launches_by_route``.  Top-k and the checksums
+are exact, and so are two runs of the attention backward and a replayed
+train step.  This file imports no JAX: the machine with the card has none.
 """
 
 import dataclasses
@@ -38,6 +40,7 @@ from repro_torch.tree import flatten_named
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ROUTE = {torch.float32: "cuda_core", torch.bfloat16: "wgmma"}
 SCAN_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
 
 
@@ -64,18 +67,20 @@ def _randn(gen, shape, dtype):
     (1, 2, 2, 100, 333, 32),      # ragged both ways
     (1, 6, 2, 64, 64, 128),       # group of 3
     (1, 16, 1, 300, 300, 256),    # recurrentgemma-9b: MQA, head_dim 256
+    (1, 16, 1, 77, 200, 128),     # group of 16, ragged, Sk > Sq
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 128)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 128), (True, 17)])
 def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d, dtype, causal, window):
     gen = torch.Generator(device=cuda).manual_seed(sq * sk + d)
     q = _randn(gen, (b, hq, sq, d), dtype)
     k = _randn(gen, (b, hkv, sk, d), dtype)
     v = _randn(gen, (b, hkv, sk, d), dtype)
     kw = dict(causal=causal, window=window, q_offset=sk - sq)
-    n = fa.launches
+    n, by_route = fa.launches, fa.launches_by_route[ROUTE[dtype]]
     out = fa.flash_attention(q, k, v, **kw)
     assert fa.launches == n + 1 and out.dtype == dtype
+    assert fa.launches_by_route[ROUTE[dtype]] == by_route + 1
     want = ref.mha_reference(q, k, v, **kw)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=1e-2)
 
@@ -104,6 +109,9 @@ def test_decode_kernel_matches_plain(cuda, b, hq, hkv, s, d, lengths, dtype):
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 96, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 2, 64, 8, device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -225,9 +233,11 @@ def test_recurrent_model_kernel_path_matches_plain_path(cuda, arch, prompt, coun
     (1, 8, 1, 50, 200, 128),      # MQA, Sk > Sq
     (1, 6, 2, 100, 100, 128),     # group of 3
     (1, 2, 2, 70, 70, 32),        # MHA, head_dim 32
+    (2, 16, 1, 90, 90, 64),       # group of 16
+    (1, 3, 1, 257, 300, 128),     # ragged past both routes' tiles, Sk > Sq
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 17)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 17), (True, 128)])
 def test_flash_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, hq, hkv, sq, sk, d,
                                                                  dtype, causal, window):
     gen = torch.Generator(device=cuda).manual_seed(sq * sk + d)
@@ -239,14 +249,46 @@ def test_flash_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, hq, hk
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     _, want_lse = ref.flash_attention_reference(q, k, v, return_lse=True, **kw)
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
-    n = fb.launches
+    n, by_route = fb.launches, fb.launches_by_route[ROUTE[dtype]]
     got = fb.flash_attention_backward(q, k, v, o, lse, do, **kw)
     again = fb.flash_attention_backward(q, k, v, o, lse, do, **kw)
-    assert fb.launches == n + 2
+    assert fb.launches == n + 2 and fb.launches_by_route[ROUTE[dtype]] == by_route + 2
     want = ref.flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and torch.equal(g, a)
         torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype], rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_routes_by_dtype(cuda, dtype):
+    """bf16 takes the wgmma kernels and fp32 the CUDA-core ones, forward and
+    backward, and the other route is not touched."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (_randn(gen, s, dtype) for s in ((1, 4, 96, 128), (1, 2, 96, 128),
+                                                   (1, 2, 96, 128), (1, 4, 96, 128)))
+    before = dict(fa.launches_by_route), dict(fb.launches_by_route)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    fb.flash_attention_backward(q, k, v, o, lse, do)
+    for mod, was in zip((fa, fb), before):
+        assert {r: mod.launches_by_route[r] - was[r] for r in mod.ROUTES} == {
+            r: int(r == ROUTE[dtype]) for r in mod.ROUTES}
+
+
+def test_flash_autograd_in_bf16_runs_both_wgmma_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    leaves = [_randn(gen, s, torch.bfloat16).requires_grad_(True)
+              for s in ((2, 6, 150, 128), (2, 2, 150, 128), (2, 2, 150, 128))]
+    f0, b0 = fa.launches_by_route["wgmma"], fb.launches_by_route["wgmma"]
+    out = fa.flash_attention_trainable(*leaves, causal=True, window=64)
+    out.backward(torch.ones_like(out))
+    assert (fa.launches_by_route["wgmma"] - f0, fb.launches_by_route["wgmma"] - b0) == (1, 1)
+    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+    ref_out = fa.flash_attention_trainable(*plain, causal=True, window=64, use_kernels=False)
+    ref_out.backward(torch.ones_like(ref_out))
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=TOL[torch.bfloat16], rtol=1e-2)
+    for a, p in zip(leaves, plain):
+        torch.testing.assert_close(a.grad.float(), p.grad.float(), atol=TOL[torch.bfloat16],
+                                   rtol=1e-2)
 
 
 def test_flash_autograd_on_the_card_runs_both_kernels(cuda):
