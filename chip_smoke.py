@@ -19,13 +19,16 @@ It prints one JSON object per line, one line per phase:
            torch.topk on the same inputs, yardsticks the port never calls;
            no single torch call computes a scan or a checksum, so theirs is
            null) from CUDA events,
-           each launch after an L2 flush, and bound_ms: the larger of
-           bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16, 67
-           TFLOP/s fp32; the scans compute in fp32), from the shapes and
-           masks of the case.  Flash lines name their route (bf16: "wgmma",
-           fp32: "cuda_core"); bf16 ones also time the CUDA-core kernel's
-           bf16 build, which served bf16 before the wgmma kernels, as
-           earlier_kernel_ms
+           each launch after an L2 flush, and bound_ms: the largest of
+           bytes / 3.35 TB/s, operations / peak (989 TFLOP/s bf16, 67
+           TFLOP/s fp32; the scans compute in fp32) and, for mamba_scan,
+           exponentials / the special-function units' rate (132 SMs x 16 a
+           clock x 1.98 GHz), from the shapes and masks of the case.  Flash
+           and decode lines name their route (flash bf16: "wgmma", decode
+           bf16: "mma", fp32: "cuda_core"); bf16 ones also time the
+           CUDA-core kernel's bf16 build, which served bf16 before, as
+           earlier_kernel_ms.  Decode lines add library_live_ms: SDPA over
+           the live prefix of the cache alone, the bytes the kernel reads
   parity   the kernel path against the plain path on the same float32
            weights at published widths (max abs logit error <= 2e-3):
            llama3.2-3b cut to depth 2 (and at depth 28, beside the plain
@@ -36,9 +39,9 @@ It prints one JSON object per line, one line per phase:
            the published llama3.2-3b, falcon-mamba-7b and recurrentgemma-9b
            configs (bf16) on fresh seeded weights, with each kernel's
            launches counted from zero and held to their exact counts, every
-           flash launch on the "wgmma" route
+           flash launch on the "wgmma" route and every decode launch on "mma"
   profile  torch.profiler over one prefill and three decode steps of
-           llama3.2-3b and of recurrentgemma-9b: wall, host-enqueue and
+           llama3.2-3b, recurrentgemma-9b and falcon-mamba-7b: wall, host-enqueue and
            device ms, the device's idle share, kernel launches, and the
            kernels that take the most time
   store    llama3.2-3b widths cut to 2 layers: a full commit to a mirrored
@@ -67,11 +70,13 @@ It prints one JSON object per line, one line per phase:
   time     the seconds of the whole run, the kernels' build included
   kernels  every kernel of the path: its launches over the phase that runs
            it (serve, train or lifecycle), and the numbers of its case; the
-           flash entries also name their design (one kernel a dtype)
+           flash and decode entries also name their design (one kernel a
+           dtype), decode adds its recurrentgemma-9b case, mamba its design
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
-script exits non-zero without it.  It also exits non-zero, printing nothing,
-when no CUDA device is available or src/repro_torch is not beside it.
+script exits non-zero without it.  It also exits non-zero, with no result,
+when no CUDA device is available or src/repro_torch is not beside it: its
+reason goes to stderr and, as {"phase": "exit", "ok": false, ...}, to stdout.
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "tr
           "lifecycle")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
+SFU_EXP_PER_S = 132 * 16 * 1.98e9   # exponentials: 16 an SM a clock, 132 SMs, 1.98 GHz boost
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}                 # tests/test_kernels.py:19-20
 RTOL = 1e-2
 SCAN_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (5e-4, 1e-3)}  # tests/test_kernels.py:79-80
@@ -101,23 +107,33 @@ RGEMMA = dict(B=4, Hq=16, Hkv=1, D=256)                    # recurrentgemma-9b l
 LLAMA_EMBED = 128256 * 3072                                 # llama3.2-3b's embedding, elements
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
 FLASH_DESIGN = "wgmma+TMA (bf16); CUDA cores (fp32)"  # the flash kernels: one a dtype
+DECODE_DESIGN = ("mma.sync m16n8k16 on a 3-stage cp.async ring, splits from the SM count "
+                 "(bf16); CUDA cores, 256-key chunks of the cache (fp32)")
+MAMBA_DESIGN = ("4 lanes a channel, N/4 states each; y a tree in a lane, then a "
+                "reduce-scatter over the lanes every 16 steps; x, delta, Bm, Cm by cp.async a "
+                "tile ahead (fp32 and bf16)")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _zero_flash_routes() -> None:
-    """Sets both flash wrappers' launches_by_route to zero."""
-    from repro_torch.kernels import flash_attention, flash_attention_bwd
+def _zero_routes() -> None:
+    """Sets the attention wrappers' launches_by_route to zero."""
+    from repro_torch.kernels import decode_attention, flash_attention, flash_attention_bwd
 
-    for m in (flash_attention, flash_attention_bwd):
+    for m in (flash_attention, flash_attention_bwd, decode_attention):
         m.launches_by_route = dict.fromkeys(m.ROUTES, 0)
 
 
-def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0):
+    """(least ms, what bounds it): the largest of bytes over the memory rate,
+    operations over the peak of `dtype`, and exponentials over the
+    special-function units' rate."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / PEAK_FLOPS[dtype],
+             "sfu": exps / SFU_EXP_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 class Timer:
@@ -230,6 +246,8 @@ def decode_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype, lengths):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
 
+    route = da._route(getattr(torch, dtype), D)
+
     g = torch.Generator(device="cuda").manual_seed(S + sum(lengths))
     dt = getattr(torch, dtype)
     q = torch.randn((B, Hq, D), generator=g, device="cuda").to(dt)
@@ -249,21 +267,48 @@ def decode_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype, lengths):
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     mask = (torch.arange(S, device="cuda")[None, :] < length[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    # SDPA over the whole cache reads every slot; over the live prefix, what
+    # the kernel reads
+    top = max(min(n, S) for n in lengths)
+    k_live, v_live = k[:, :, :top].contiguous(), v[:, :, :top].contiguous()
     line = {"phase": "kernel", "kernel": "decode_attention", "case": name, "dtype": dtype,
-            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D}, "lengths": lengths,
+            "route": route, "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D},
+            "lengths": lengths,
+            "n_split": da.n_split(B, Hq, Hkv, D, q.device) if route == "mma" else None,
             "max_err": float(err.max()), "tol": {"atol": TOL[dtype], "rtol": RTOL}, "ok": ok,
             "kernel_ms": timer(lambda: da.decode_attention(q, k, v, length=length)),
             "plain_ms": timer(lambda: ref.decode_attention_reference(q, k, v, length=length)),
             "library_ms": timer(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask,
                                              enable_gqa=True)),
+            "library_live_ms": timer(lambda: sdpa(q[:, :, None], k_live, v_live,
+                                                  attn_mask=mask[..., :top], enable_gqa=True)),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    if route == "mma":
+        line["earlier_kernel_ms"] = timer(lambda: _cuda_core_bf16_decode(torch, q, k, v, length))
     emit(line)
     if not ok:
         raise AssertionError(f"decode_attention case {name}: max_err {line['max_err']}")
     return line
 
 
-def _scan_line(kernel, name, dtype, shape, got, want, timer, run, plain, nbytes, flops):
+def _cuda_core_bf16_decode(torch, q, k, v, length):
+    """The CUDA-core decode kernel's bf16 build, which served bf16 until the
+    tensor-core kernel: its yardstick in the same run."""
+    from repro_torch.kernels import decode_attention as da
+
+    b, hq, d = q.shape
+    lib = da._lib("cuda_core")
+    chunks = -(-k.shape[2] // lib.repro_decode_chunk())
+    out = torch.empty_like(q)
+    ml = torch.empty((b, hq, chunks, 2), dtype=torch.float32, device="cuda")
+    acc = torch.empty((b, hq, chunks, d), dtype=torch.float32, device="cuda")
+    lib.repro_decode_attention(*(t.data_ptr() for t in (q, k, v, length, out, ml, acc)), 1, b,
+                               hq, k.shape[1], k.shape[2], d, chunks, d ** -0.5,
+                               torch.cuda.current_stream().cuda_stream)
+
+
+def _scan_line(kernel, name, dtype, shape, got, want, timer, run, plain, nbytes, flops,
+               exps=0.0):
     """The kernel line of a scan case: (y, hT) against the plain version's."""
     atol, rtol = SCAN_TOL[dtype]
     errs, ok = [], True
@@ -271,12 +316,13 @@ def _scan_line(kernel, name, dtype, shape, got, want, timer, run, plain, nbytes,
         err = (g.float() - w.float()).abs()
         errs.append(float(err.max()))
         ok = ok and bool((err <= atol + rtol * w.float().abs()).all())
-    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    bound_ms, bound_by = bound(nbytes, flops, "float32", exps)
     line = {"phase": "kernel", "kernel": kernel, "case": name, "dtype": dtype, "shape": shape,
             "max_err": max(errs), "max_err_y_hT": errs, "tol": {"atol": atol, "rtol": rtol},
             "ok": ok, "kernel_ms": timer(run), "plain_ms": timer(plain, iters=3),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "flops": flops}
+            "flops": flops, "exps": exps,
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     emit(line)
     if not ok:
         raise AssertionError(f"{kernel} case {name}: max_err {errs}")
@@ -328,10 +374,11 @@ def mamba_case(torch, timer, name, *, B, S, Din, N, dtype, with_h0=False):
               + 4 * B * Din * N * (2 if with_h0 else 1))
     # per state: dt*A, exp, dt*x*B, a*h + b (2), h*C + acc (2); per channel: dt*x, D*x + acc
     flops = 7.0 * B * S * Din * N + 3.0 * B * S * Din
+    # one exponential per (b, t, d, n), on the special-function units
     return _scan_line("mamba_scan", name, dtype,
                       {"B": B, "S": S, "Din": Din, "N": N, "h0": with_h0}, got, want, timer,
                       lambda: ms.mamba_scan(*args), lambda: ref.mamba_scan_reference(*args),
-                      nbytes, flops)
+                      nbytes, flops, exps=float(B * S * Din * N))
 
 
 def flash_bwd_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype):
@@ -495,8 +542,8 @@ def phase_kernels(torch):
                 dtype="float32", lengths=lengths, **LLAMA)
     flash_case(torch, timer, "recurrentgemma-9b prefill (MQA, D=256)", Sq=3072, Sk=3072,
                dtype="bfloat16", window=2048, **RGEMMA)
-    decode_case(torch, timer, "recurrentgemma-9b decode, ring 2048", S=2048, dtype="bfloat16",
-                lengths=[2048] * 4, **RGEMMA)
+    lines["decode_rgemma"] = decode_case(torch, timer, "recurrentgemma-9b decode, ring 2048",
+                                         S=2048, dtype="bfloat16", lengths=[2048] * 4, **RGEMMA)
     lines["rglru"] = rglru_case(torch, timer, "recurrentgemma-9b prefill", B=4, S=3072, D=4096,
                                 dtype="bfloat16")
     rglru_case(torch, timer, "recurrentgemma-9b prefill fp32", B=4, S=3072, D=4096,
@@ -646,7 +693,7 @@ def phase_serve(torch):
         torch.cuda.reset_peak_memory_stats()
         for m in mods.values():
             m.launches = 0
-        _zero_flash_routes()
+        _zero_routes()
         stats = serve.main(["--arch", arch, "--full", "--batch", "4", "--prompt-len", str(prompt),
                             "--max-new", str(max_new), "--requests", str(requests)])
         launches = {k: m.launches for k, m in mods.items()}
@@ -665,15 +712,19 @@ def phase_serve(torch):
                 "tokens_per_s": stats["tokens"] / stats["seconds"],
                 "logits_finite": stats["logits_finite"],
                 "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches,
-                "flash_launches_by_route": dict(flash_attention.launches_by_route)}
+                "flash_launches_by_route": dict(flash_attention.launches_by_route),
+                "decode_launches_by_route": dict(decode_attention.launches_by_route)}
         emit(line)
         want = {k: per_request.get(k, 0) * requests for k in mods}
         routes = {"wgmma": want["flash_attention"], "cuda_core": 0}
+        decode_routes = {"mma": want["decode_attention"], "cuda_core": 0}
         if (launches != want or line["flash_launches_by_route"] != routes
+                or line["decode_launches_by_route"] != decode_routes
                 or not stats["logits_finite"]):
             raise AssertionError(f"serve {arch}: launches {launches}, want {want}; flash routes "
-                                 f"{line['flash_launches_by_route']}, want {routes}; "
-                                 f"finite {stats['logits_finite']}")
+                                 f"{line['flash_launches_by_route']}, want {routes}; decode "
+                                 f"routes {line['decode_launches_by_route']}, want "
+                                 f"{decode_routes}; finite {stats['logits_finite']}")
         for k in mods:
             total[k] += launches[k]
         torch.cuda.empty_cache()
@@ -784,7 +835,7 @@ def phase_train(torch):
     layers = 28
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fb.launches = 0
-    _zero_flash_routes()
+    _zero_routes()
     out = train.main(["--arch", "llama3.2-3b", "--full", "--steps", str(TRAIN_STEPS),
                       "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ)])
     launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
@@ -966,7 +1017,7 @@ def phase_train_parity(torch):
             line["init"] = "wq, wk at the standard fan-in (d_model)"
             params = _standard_fan_in(torch, params)
         fa.launches = fb.launches = 0
-        _zero_flash_routes()
+        _zero_routes()
         loss_k, grads_k = loss_and_grads(cfg, params, batch, "cuda")
         launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
         routes = {"flash_attention": dict(fa.launches_by_route),
@@ -1022,7 +1073,7 @@ def phase_lifecycle(torch):
         ckpt = CheckpointManager(AsymStore(FileBlade(primary, mirrors=[mirror])), full_every=2,
                                  delta_every=3, keep=3)
         tk.launches = lc.launches = 0
-        _zero_flash_routes()
+        _zero_routes()
         tr = Trainer(model, tcfg, dcfg, ckpt=ckpt, seed=9)
         tr.init()
         tr.run(TrainerConfig(total_steps=2))
@@ -1083,6 +1134,13 @@ def phase_lifecycle(torch):
     return launches
 
 
+def _fail(reason: str) -> int:
+    """An early exit: its reason on stderr and as one line on stdout, no result."""
+    print(f"chip_smoke: {reason}", file=sys.stderr, flush=True)
+    emit({"phase": "exit", "ok": False, "reason": reason})
+    return 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -1094,16 +1152,14 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
-        return 1
+        return _fail("src/repro_torch not found beside this script")
     # cuBLAS reads this when it starts; the trainer's deterministic steps
     # need it (repro_torch/training/trainer.py)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
+        return _fail("no CUDA device is available")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
@@ -1131,6 +1187,7 @@ def main(argv=None) -> int:
     if "profile" in only:
         phase_profile(torch, "llama3.2-3b", 1024)
         phase_profile(torch, "recurrentgemma-9b", 3072)
+        phase_profile(torch, "falcon-mamba-7b", 1024)
     if "store" in only:
         phase_store(torch)
     train = phase_train(torch) if "train" in only else None
@@ -1156,7 +1213,7 @@ def main(argv=None) -> int:
             ("flash_bwd", "flash_attention_bwd", "flash_attention_bwd_sm90",
              "src/repro/kernels/flash_attention.py:91 (its gradient; JAX differentiates "
              "src/repro/kernels/ref.py:flash_attention_reference)"),
-            ("decode", "decode_attention", "decode_attention",
+            ("decode", "decode_attention", "decode_attention_sm90",
              "src/repro/kernels/decode_attention.py:70"),
             ("rglru", "rglru_scan", "rglru_scan", "src/repro/kernels/rglru_scan.py:57"),
             ("mamba", "mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan.py:68"),
@@ -1172,9 +1229,16 @@ def main(argv=None) -> int:
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "checked": True})
-        if key in ("flash", "flash_bwd"):  # the main path's kernel is the bf16 one
-            kernels[-1].update(design=FLASH_DESIGN,
+        if key in ("flash", "flash_bwd", "decode"):  # the main path's kernel is the bf16 one
+            kernels[-1].update(design=DECODE_DESIGN if key == "decode" else FLASH_DESIGN,
                                fp32_source=f"src/repro_torch/kernels/csrc/{name}.cu")
+        if key == "decode":  # at recurrentgemma-9b's shape too, and SDPA over the live keys
+            rg = cases["decode_rgemma"]
+            kernels[-1].update(library_live_ms=c["library_live_ms"], at_d256={
+                k: rg[k] for k in ("case", "max_err", "kernel_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "library_live_ms")})
+        if key == "mamba":
+            kernels[-1]["design"] = MAMBA_DESIGN
     one = cases["fletcher32"]  # checked in its kernel case; the main path never makes the call
     kernels[-1]["one_segment"] = {"name": "fletcher32", "case": one["case"],
                                   "max_abs_err": one["max_err"], "ms": one["kernel_ms"],

@@ -43,4 +43,30 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restric
   }
 }
 
+// cp.async: 16 bytes from global to shared memory without passing through
+// registers (L2 only).  `bytes` 0 writes 16 zero bytes and reads nothing, so a
+// ragged edge is zero-filled; `src` must still be a valid address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+// The same for 4 or 8 bytes (through L1: cp.async.cg takes 16 bytes only).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src, bool ok) {
+  static_assert(BYTES == 4 || BYTES == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(BYTES),
+               "r"(ok ? BYTES : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most `N` of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace repro

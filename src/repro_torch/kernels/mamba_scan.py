@@ -9,10 +9,13 @@ returns ``y`` in x's dtype and ``hT`` fp32).  The kernel is
 
 What bounds it on the H100: at falcon-mamba-7b's prefill (B=4, S=1024,
 Din=8192, N=16, bf16 x/B/C, fp32 delta) it moves 269 MB (0.080 ms at 3.35
-TB/s) and takes 537 M exponentials.  The design: one thread per (row,
-channel) holds the channel's N states in registers and walks the sequence
-in tiles that the block stages in shared memory; see the note in the source
-(PERF.md has its times).
+TB/s) and takes 537 M exponentials, which the special-function units finish
+no sooner than ~0.128 ms: that is its floor.  The design: four lanes per
+(row, channel) each hold N / 4 of the channel's states in registers and walk
+the sequence in tiles that arrive in shared memory by ``cp.async`` a tile
+ahead; y_t's sum over states is a tree within a lane, then a reduce-scatter
+across the four lanes every 16 steps.  One exponential per (b, t, d, n); see
+the note in the source (PERF.md has its times).
 
 ``launches`` counts kernel launches; the plain path never adds to it.
 """
@@ -88,6 +91,9 @@ def mamba_scan(
     _check("D", D, x.device, torch.float32, (din,))
     if h0 is not None:
         _check("h0", h0, x.device, torch.float32, (b, din, n))
+    for name, t in (("x", x), ("delta", delta), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16:  # the kernel copies their rows with cp.async
+            raise ValueError(f"mamba_scan: {name} must be 16-byte aligned")
     if s == 0:
         raise ValueError("mamba_scan: empty sequence")
     y = torch.empty_like(x)

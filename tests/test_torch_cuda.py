@@ -91,19 +91,33 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d, dtype, causal, 
     (4, 24, 8, 2048, 128, (1025, 1056, 1, 2048)),
     (2, 16, 1, 700, 32, (257, 700)),
     (2, 16, 1, 2048, 256, (2048, 1000)),  # recurrentgemma-9b: MQA, head_dim 256
+    (4, 24, 8, 32768, 128, (1025, 1056, 1040, 1031)),  # llama3.2-3b's cache, ~1056 live
+    (4, 16, 1, 2048, 256, (0, 1, 2048, 33)),  # a row with no key, and one with one
+    (4, 24, 8, 4096, 128, "edges"),
+    (4, 16, 1, 2048, 256, "edges"),
+    (2, 40, 2, 300, 64, (300, 77)),  # a group of 20 query heads: two row groups
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, b, hq, hkv, s, d, lengths, dtype):
+    if lengths == "edges":  # on and off the edges of the bf16 kernel's splits
+        ns = da.n_split(b, hq, hkv, d, cuda)
+        lengths = (ns * 16, ns * 16 + 1, ns * 31 - 1, ns)
     gen = torch.Generator(device=cuda).manual_seed(s + d)
     q = _randn(gen, (b, hq, d), dtype)
     k = _randn(gen, (b, hkv, s, d), dtype)
     v = _randn(gen, (b, hkv, s, d), dtype)
     length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    n = da.launches
+    route = "mma" if dtype == torch.bfloat16 else "cuda_core"
+    n, by_route = da.launches, da.launches_by_route[route]
     out = da.decode_attention(q, k, v, length=length)
     assert da.launches == n + 1 and out.dtype == dtype
+    assert da.launches_by_route[route] == by_route + 1
     want = ref.decode_attention_reference(q, k, v, length=length)
-    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=1e-2)
+    # a row with no visible key gives 0, as the Pallas kernel; the plain
+    # version's softmax over a fully masked row averages the cache instead
+    live = length > 0
+    assert not out[~live].any()
+    torch.testing.assert_close(out[live].float(), want[live].float(), atol=TOL[dtype], rtol=1e-2)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -153,8 +167,11 @@ def test_rglru_kernel_matches_plain(cuda, b, s, d, dtype, with_h0):
     torch.testing.assert_close(hT, wh, **SCAN_TOL[dtype])
 
 
+# S off the 32-step tile (1000, 200, 33, 1); Din off the 64-channel block
+# (200, 100) and, for bf16, off the 16-byte vector (100)
 @pytest.mark.parametrize("b,s,din,n", [(2, 512, 256, 16), (1, 200, 128, 8), (2, 1000, 1024, 16),
-                                       (1, 33, 200, 8)])
+                                       (1, 33, 200, 8), (4, 1000, 8192, 16), (2, 31, 100, 16),
+                                       (3, 1, 64, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_mamba_kernel_matches_plain(cuda, b, s, din, n, dtype, with_h0):
