@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py                  # every phase; exits 0 only if all pass
     python3 chip_smoke.py --only kernel    # build + the kernel cases only
     python3 chip_smoke.py --only kernel,train
+    python3 chip_smoke.py --only kernel,train_recurrent
 
 It prints one JSON object per line, one line per phase:
 
@@ -28,7 +29,11 @@ It prints one JSON object per line, one line per phase:
            bf16: "mma", fp32: "cuda_core"); bf16 ones also time the
            CUDA-core kernel's bf16 build, which served bf16 before, as
            earlier_kernel_ms.  Decode lines add library_live_ms: SDPA over
-           the live prefix of the cache alone, the bytes the kernel reads
+           the live prefix of the cache alone, the bytes the kernel reads.
+           The backward cases (flash at llama's and recurrentgemma-9b's
+           shapes, the two scans' reverse scans with h0 and dhT) hold every
+           gradient within their tolerance of its largest entry and two
+           runs bitwise equal
   parity   the kernel path against the plain path on the same float32
            weights at published widths (max abs logit error <= 2e-3):
            llama3.2-3b cut to depth 2 (and at depth 28, beside the plain
@@ -54,7 +59,16 @@ It prints one JSON object per line, one line per phase:
            tokens/s, peak memory, losses;
            then the step-0 gradient norms of the kernel and plain paths
            (float64, per tensor), and torch.profiler over one step
-  train_parity  llama3.2-3b widths at depth 2: loss and every gradient on
+  train_recurrent  the recurrent family's training path:
+           repro_torch.launch.train.main at the published falcon-mamba-7b
+           and recurrentgemma-9b (bf16, Adafactor with bf16 momentum) for 4
+           steps of 1 x 1024 and 2 x 1024 tokens; the scans' and
+           attention's forward and backward launches held to their exact
+           counts, all flash on "wgmma"; step ms, tokens/s, peak memory,
+           losses, grad norms; then every parameter's step-0 gradient,
+           finite and nonzero in every layer
+  train_parity  llama3.2-3b and falcon-mamba-7b widths at depth 2,
+           recurrentgemma-9b's at one pattern: loss and every gradient on
            the kernel path against the plain path, from the same weights and
            batch; in float32 (the CUDA-core kernels; each gradient within
            2e-3 of its largest entry) and in bf16 (the wgmma kernels; within
@@ -69,7 +83,8 @@ It prints one JSON object per line, one line per phase:
            flash launch on the "wgmma" route
   time     the seconds of the whole run, the kernels' build included
   kernels  every kernel of the path: its launches over the phase that runs
-           it (serve, train or lifecycle), and the numbers of its case; the
+           it (serve, train, train_recurrent or lifecycle), and the numbers
+           of its case; the
            flash and decode entries also name their design (one kernel a
            dtype), decode adds its recurrentgemma-9b case, mamba its design
 
@@ -94,8 +109,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_parity",
-          "lifecycle")
+PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_recurrent",
+          "train_parity", "lifecycle")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
 SFU_EXP_PER_S = 132 * 16 * 1.98e9   # exponentials: 16 an SM a clock, 132 SMs, 1.98 GHz boost
@@ -106,12 +121,26 @@ LLAMA = dict(B=4, Hq=24, Hkv=8, D=128)                     # llama3.2-3b attenti
 RGEMMA = dict(B=4, Hq=16, Hkv=1, D=256)                    # recurrentgemma-9b local attention
 LLAMA_EMBED = 128256 * 3072                                 # llama3.2-3b's embedding, elements
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
+# train_recurrent: each model as published (bf16, Adafactor with bf16
+# momentum), TRAIN_RECURRENT_STEPS steps of batch x TRAIN_SEQ tokens; per
+# step, the forward and the backward launches of each kernel.  The batch is
+# the most that fits in 80 GB: falcon-mamba-7b's weights, gradients and
+# momentum take 44 GB and 2 x 1024 tokens' activations another ~44 GB
+TRAIN_RECURRENT = (("falcon-mamba-7b", 64, 1, {"mamba_scan": 64}),
+                   ("recurrentgemma-9b", 38, 2, {"rglru_scan": 26, "flash_attention": 12}))
+TRAIN_RECURRENT_STEPS = 4
 FLASH_DESIGN = "wgmma+TMA (bf16); CUDA cores (fp32)"  # the flash kernels: one a dtype
 DECODE_DESIGN = ("mma.sync m16n8k16 on a 3-stage cp.async ring, splits from the SM count "
                  "(bf16); CUDA cores, 256-key chunks of the cache (fp32)")
 MAMBA_DESIGN = ("4 lanes a channel, N/4 states each; y a tree in a lane, then a "
                 "reduce-scatter over the lanes every 16 steps; x, delta, Bm, Cm by cp.async a "
                 "tile ahead (fp32 and bf16)")
+SCAN_BWD_DESIGN = {
+    "mamba_bwd": "reverse scan, 4 lanes a channel; each 32-step tile recomputed from the "
+                 "forward's checkpoint in two 16-step halves kept in registers; dBm, dCm by a "
+                 "reduce-scatter over a warp's channels, per-block partials summed in order",
+    "rglru_bwd": "reverse scan, a thread a (row, channel); 16-step groups recomputed from the "
+                 "forward's checkpoints into registers; dlog_a per row, summed in order"}
 
 
 def emit(obj) -> None:
@@ -339,7 +368,7 @@ def rglru_case(torch, timer, name, *, B, S, D, dtype, with_h0=False):
     x, r, i = rn(B, S, D).to(dt), torch.sigmoid(rn(B, S, D)).to(dt), torch.sigmoid(rn(B, S, D)).to(dt)
     log_a = -torch.exp(rn(D) * 0.3) * 0.1
     h0 = rn(B, D) if with_h0 else None
-    got = rs.rglru_scan(x, r, i, log_a, h0)
+    got = rs.rglru_scan(x, r, i, log_a, h0)[:2]
     want = ref.rglru_reference(x, r, i, log_a, h0)
     torch.cuda.synchronize()
     item = torch.finfo(dt).bits // 8
@@ -365,7 +394,7 @@ def mamba_case(torch, timer, name, *, B, S, Din, N, dtype, with_h0=False):
     D = rn(Din)
     h0 = rn(B, Din, N) if with_h0 else None
     args = (x, delta, A, Bm, Cm, D, h0)
-    got = ms.mamba_scan(*args)
+    got = ms.mamba_scan(*args)[:2]
     want = ref.mamba_scan_reference(*args)
     torch.cuda.synchronize()
     item = torch.finfo(dt).bits // 8
@@ -381,9 +410,24 @@ def mamba_case(torch, timer, name, *, B, S, Din, N, dtype, with_h0=False):
                       nbytes, flops, exps=float(B * S * Din * N))
 
 
-def flash_bwd_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype):
+def _grad_errs(got, want, atol, rtol, relative=True):
+    """(each gradient's max abs error, each one's relative to its largest
+    entry, whether every entry is within atol (times that entry, if
+    `relative`) plus rtol of itself): the backward cases' tolerance."""
+    abs_errs, rel_errs, ok = [], [], True
+    for g, w in zip(got, want):
+        err, wf = (g.float() - w.float()).abs(), w.float().abs()
+        scale = float(wf.max())
+        abs_errs.append(float(err.max()))
+        rel_errs.append(float(err.max()) / max(scale, 1e-30))
+        ok = ok and bool((err <= atol * (scale if relative else 1.0) + rtol * wf).all())
+    return abs_errs, rel_errs, ok
+
+
+def flash_bwd_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype, window=None):
     """The backward kernel against its plain version, both given the same
-    q, k, v, dO and the kernel forward's o and lse (causal, Sq == Sk)."""
+    q, k, v, dO and the kernel forward's o and lse (causal, Sq == Sk, and
+    the local window where one is given)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import ref
@@ -395,21 +439,22 @@ def flash_bwd_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype):
     k = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(dt)
     v = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(dt)
     do = torch.randn((B, Hq, S, D), generator=g, device="cuda").to(dt)
-    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    kw = dict(causal=True, window=window)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     args = (q, k, v, o, lse, do)
-    got = fb.flash_attention_backward(*args, causal=True)
-    again = fb.flash_attention_backward(*args, causal=True)
-    want = ref.flash_attention_backward_reference(*args, causal=True)
+    got = fb.flash_attention_backward(*args, **kw)
+    again = fb.flash_attention_backward(*args, **kw)
+    want = ref.flash_attention_backward_reference(*args, **kw)
     torch.cuda.synchronize()
-    errs, ok = [], True
-    for a, w in zip(got, want):
-        err = (a.float() - w.float()).abs()
-        errs.append(float(err.max()))
-        ok = ok and bool((err <= TOL[dtype] + RTOL * w.float().abs()).all())
+    # the head_dim 256 cases take atol relative to each gradient's largest
+    # entry, as the scans' backward cases; the smaller head dims an absolute atol
+    errs, rel, ok = _grad_errs(got, want, TOL[dtype], RTOL, relative=D == 256)
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     del again, want
 
-    pairs = S * (S + 1) // 2
+    qpos = np.arange(S)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(S, np.int64)
+    pairs = int((qpos + 1 - lo).sum())  # the visible (query, key) pairs
     item = torch.finfo(dt).bits // 8
     # q, o, dO read and dq written; k, v read and dk, dv written; lse read
     nbytes = item * (4 * B * Hq * S * D + 4 * B * Hkv * S * D) + 4 * B * Hq * S
@@ -417,28 +462,112 @@ def flash_bwd_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype):
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     with torch.enable_grad():
-        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                                   enable_gqa=True)
+        if window is None or window >= S:  # exactly causal: SDPA's causal flash backend
+            lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                                       enable_gqa=True)
+        else:
+            qp, kp = torch.arange(S, device="cuda")[:, None], torch.arange(S, device="cuda")
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=(kp <= qp) & (kp > qp - window), enable_gqa=True)
     line = {"phase": "kernel", "kernel": "flash_attention_bwd", "case": name, "dtype": dtype,
             "route": route, "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D},
-            "causal": True,
-            "max_err": max(errs), "max_err_dq_dk_dv": errs,
-            "tol": {"atol": TOL[dtype], "rtol": RTOL}, "bitwise_repeat": bitwise,
+            "causal": True, "window": window,
+            "max_err": max(errs), "max_err_dq_dk_dv": errs, "max_err_rel_to_scale": rel,
+            "tol": {"atol_rel_to_scale" if D == 256 else "atol": TOL[dtype], "rtol": RTOL},
+            "bitwise_repeat": bitwise,
             "ok": ok and bitwise,
-            "kernel_ms": timer(lambda: fb.flash_attention_backward(*args, causal=True)),
-            "plain_ms": timer(lambda: ref.flash_attention_backward_reference(*args, causal=True),
+            "kernel_ms": timer(lambda: fb.flash_attention_backward(*args, **kw)),
+            "plain_ms": timer(lambda: ref.flash_attention_backward_reference(*args, **kw),
                               iters=3),
             "library_ms": timer(lambda: torch.autograd.grad(lib_out, leaves, do,
                                                             retain_graph=True)),
             "library": "backward of scaled_dot_product_attention, timed alone",
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-    if route == "wgmma":
+    if route == "wgmma" and window is None:  # the CUDA-core kernel's bf16 build, causal
         line["earlier_kernel_ms"] = timer(lambda: _cuda_core_bf16_backward(torch, *args))
     emit(line)
     del lib_out, leaves
     if not line["ok"]:
         raise AssertionError(f"flash_attention_bwd case {name}: {errs}, bitwise {bitwise}")
     return line
+
+
+def _scan_bwd_line(kernel, name, dtype, shape, timer, run, plain, nbytes, flops, exps):
+    """The kernel line of a scan's backward case: every gradient against the
+    plain backward's (the scans' tolerance, relative to each gradient's
+    largest entry), two runs bitwise equal, no library call."""
+    got, again, want = run(), run(), plain()
+    errs, rel, ok = _grad_errs(got, want, *SCAN_TOL[dtype])
+    bitwise = all(a.equal(b) for a, b in zip(got, again))
+    del got, again, want
+    bound_ms, bound_by = bound(nbytes, flops, "float32", exps)
+    line = {"phase": "kernel", "kernel": kernel, "case": name, "dtype": dtype, "shape": shape,
+            "max_err": max(errs), "max_err_each": errs, "max_err_rel_to_scale": rel,
+            "tol": dict(zip(("atol_rel_to_scale", "rtol"), SCAN_TOL[dtype])),
+            "bitwise_repeat": bitwise, "ok": ok and bitwise, "kernel_ms": timer(run),
+            "plain_ms": timer(plain, iters=3), "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops, "exps": exps,
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"{kernel} case {name}: {errs} (rel {rel}), bitwise {bitwise}")
+    return line
+
+
+def mamba_bwd_case(torch, timer, name, *, B, S, Din, N, dtype):
+    """mamba_scan_backward (with h0 and dhT) against the plain reverse scan,
+    from the kernel forward's checkpoints."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(S + Din + N + 1)
+    dt = getattr(torch, dtype)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    x, delta = rn(B, S, Din).to(dt), torch.nn.functional.softplus(rn(B, S, Din))
+    A = -torch.exp(rn(Din, N) * 0.5)
+    Bm, Cm, D, h0 = rn(B, S, N).to(dt), rn(B, S, N).to(dt), rn(Din), rn(B, Din, N)
+    dy, dhT = rn(B, S, Din).to(dt), rn(B, Din, N)
+    args = (x, delta, A, Bm, Cm, D, h0)
+    ckpt = ms.mamba_scan(*args, checkpoints=True)[2]
+    run = lambda: ms.mamba_scan_backward(*args, dy, dhT, ckpt)  # noqa: E731
+    item = torch.finfo(dt).bits // 8
+    # x, dy, Bm, Cm read and dx, dBm, dCm written in x's type; delta, the
+    # checkpoints, A, D, dhT read and ddelta, dA, dD, dh0 written in fp32
+    nbytes = (item * (3 * B * S * Din + 4 * B * S * N) + 4 * (2 * B * S * Din
+              + B * -(-S // ms.CHUNK) * Din * N + 2 * (Din * N + Din) + 2 * B * Din * N))
+    # per state a step: a_t (exp), g (2), a h (1), the dx, ddelta, dA, dBm,
+    # dCm shares (10), a g (1), and h_t again (3)
+    flops = 17.0 * B * S * Din * N
+    return _scan_bwd_line(
+        "mamba_scan_bwd", name, dtype, {"B": B, "S": S, "Din": Din, "N": N, "h0": True,
+                                        "dhT": True}, timer, run,
+        lambda: ref.mamba_scan_backward_reference(*args, dy, dhT, chunk=ms.CHUNK),
+        nbytes, flops, exps=float(B * S * Din * N))  # a_t once per (b, t, d, n) at least
+
+
+def rglru_bwd_case(torch, timer, name, *, B, S, D, dtype):
+    """rglru_scan_backward (with h0 and dhT) against the plain reverse scan,
+    from the kernel forward's checkpoints."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rs
+
+    g = torch.Generator(device="cuda").manual_seed(S + D + 1)
+    dt = getattr(torch, dtype)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    x, r, i = rn(B, S, D).to(dt), torch.sigmoid(rn(B, S, D)).to(dt), torch.sigmoid(rn(B, S, D)).to(dt)
+    log_a, h0 = -torch.exp(rn(D) * 0.3) * 0.1, rn(B, D)
+    dy, dhT = rn(B, S, D).to(dt), rn(B, D)
+    ckpt = rs.rglru_scan(x, r, i, log_a, h0, checkpoints=True)[2]
+    run = lambda: rs.rglru_scan_backward(x, r, i, log_a, h0, dy, dhT, ckpt)  # noqa: E731
+    item = torch.finfo(dt).bits // 8
+    # x, r, i, dy read and dx, dr, di written; checkpoints, log_a, h0, dhT
+    # read and dlog_a, dh0 written in fp32
+    nbytes = item * 7 * B * S * D + 4 * (B * -(-S // rs.CHUNK) * D + 2 * D + 3 * B * D)
+    flops = 24.0 * B * S * D  # the forward's 12 again for h, and ~12 for the reverse step
+    return _scan_bwd_line(
+        "rglru_scan_bwd", name, dtype, {"B": B, "S": S, "D": D, "h0": True, "dhT": True}, timer,
+        run, lambda: ref.rglru_backward_reference(x, r, i, log_a, h0, dy, dhT), nbytes, flops,
+        0.0)
 
 
 def topk_case(torch, timer, name, *, n, k, dtype="float32"):
@@ -560,6 +689,28 @@ def phase_kernels(torch):
                                         dtype="bfloat16", **LLAMA)
     flash_bwd_case(torch, timer, "llama3.2-3b training fp32", S=TRAIN_SEQ, dtype="float32",
                    **LLAMA)
+    rg_train = dict(RGEMMA, B=TRAIN_RECURRENT[1][2], S=TRAIN_SEQ, window=2048)
+    lines["flash_bwd_d256"] = flash_bwd_case(torch, timer, "recurrentgemma-9b training",
+                                             dtype="bfloat16", **rg_train)
+    flash_bwd_case(torch, timer, "recurrentgemma-9b training fp32", dtype="float32", **rg_train)
+    flash_bwd_case(torch, timer, "recurrentgemma-9b (MQA, D=256), S 3072, window 2048", S=3072,
+                   dtype="bfloat16", window=2048, **RGEMMA)
+    torch.cuda.empty_cache()
+    lines["mamba_bwd"] = mamba_bwd_case(torch, timer, "falcon-mamba-7b, h0 and dhT", B=4,
+                                        S=1024, Din=8192, N=16, dtype="bfloat16")
+    mamba_bwd_case(torch, timer, "falcon-mamba-7b fp32, h0 and dhT", B=4, S=1024, Din=8192,
+                   N=16, dtype="float32")
+    lines["rglru_bwd"] = rglru_bwd_case(torch, timer, "recurrentgemma-9b, h0 and dhT", B=4,
+                                        S=3072, D=4096, dtype="bfloat16")
+    rglru_bwd_case(torch, timer, "recurrentgemma-9b fp32, h0 and dhT", B=4, S=3072, D=4096,
+                   dtype="float32")
+    falcon, rgemma = TRAIN_RECURRENT  # and at the shapes train_recurrent gives them
+    lines["mamba_bwd_train"] = mamba_bwd_case(
+        torch, timer, "falcon-mamba-7b training, h0 and dhT", B=falcon[2], S=TRAIN_SEQ,
+        Din=8192, N=16, dtype="bfloat16")
+    lines["rglru_bwd_train"] = rglru_bwd_case(
+        torch, timer, "recurrentgemma-9b training, h0 and dhT", B=rgemma[2], S=TRAIN_SEQ,
+        D=4096, dtype="bfloat16")
     torch.cuda.empty_cache()
     lines["topk"] = topk_case(torch, timer, "llama3.2-3b embedding delta", n=LLAMA_EMBED, k=10)
     torch.cuda.empty_cache()
@@ -946,6 +1097,94 @@ def _train_profile(torch):
     torch.cuda.empty_cache()
 
 
+def phase_train_recurrent(torch):
+    """The recurrent family's training main path: repro_torch.launch.train.main
+    at the published falcon-mamba-7b and recurrentgemma-9b (bf16, Adafactor
+    with bf16 momentum) for TRAIN_RECURRENT_STEPS steps, no store, with each
+    scan's and attention's forward and backward launches held to their
+    exact counts (every flash launch on "wgmma"); then every parameter's
+    step-0 gradient, finite and nonzero in every layer.  Returns each
+    kernel's launches over the phase."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.launch import train
+
+    counters = _kernel_counters()
+    total = dict.fromkeys(counters, 0)
+    steps = TRAIN_RECURRENT_STEPS
+    for arch, layers, batch, per_step in TRAIN_RECURRENT:
+        torch.cuda.reset_peak_memory_stats()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        _zero_routes()
+        out = train.main(["--arch", arch, "--full", "--steps", str(steps), "--global-batch",
+                          str(batch), "--seq-len", str(TRAIN_SEQ), "--optimizer", "adafactor",
+                          "--momentum-dtype", "bfloat16"])
+        launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        routes = {"flash_attention": dict(fa.launches_by_route),
+                  "flash_attention_bwd": dict(fb.launches_by_route)}
+        want = {k: per_step.get(k.removesuffix("_bwd"), 0) * steps for k in counters}
+        want_routes = {k: {"wgmma": want[k], "cuda_core": 0} for k in routes}
+        step_ms = float(np.median(out["step_s"][1:])) * 1e3  # the first also loads the kernels
+        line = {"phase": "train_recurrent", "arch": arch, "layers": layers, "dtype": "bfloat16",
+                "optimizer": "adafactor", "momentum_dtype": "bfloat16", "global_batch": batch,
+                "seq_len": TRAIN_SEQ, "steps": steps, "reduced": None,
+                "step_ms": [t * 1e3 for t in out["step_s"]], "median_steady_step_ms": step_ms,
+                "tokens_per_s": batch * TRAIN_SEQ / (step_ms / 1e3), "losses": out["losses"],
+                "grad_norms": out["grad_norms"], "all_finite": out["all_finite"],
+                "seconds": out["seconds"], "max_memory_allocated": out["max_memory_allocated"],
+                "launches": launches, "launches_by_route": routes}
+        emit(line)
+        if launches != want or routes != want_routes or not out["all_finite"]:
+            raise AssertionError(f"train_recurrent {arch}: launches {launches}, want {want}; "
+                                 f"routes {routes}; finite {out['all_finite']}")
+        for k in counters:
+            total[k] += launches[k]
+        del out
+        torch.cuda.empty_cache()
+        _step0_gradients(torch, arch, batch)
+    return total
+
+
+def _step0_gradients(torch, arch, batch):
+    """Every parameter's gradient at step 0 of the train_recurrent run's
+    weights (seed 0) and first batch, on the kernel path: finite, and
+    nonzero in every layer of a stacked parameter.  A scan that passed no
+    gradient would leave every parameter upstream of it at zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import DecoderLM
+    from repro_torch.tree import flatten_named, tree_map_named
+
+    cfg = get_config(arch)
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    data = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, global_batch=batch,
+                                        seq_len=TRAIN_SEQ)).batch_at(0)
+    leaves = {n: p.detach().requires_grad_(True) for n, p in flatten_named(params)}
+    with torch.enable_grad():
+        loss = model.loss(tree_map_named(lambda n, _: leaves[n], params),
+                          {k: torch.from_numpy(v).cuda() for k, v in data.items()})
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    bad, norms = [], {}
+    for name, g in grads.items():
+        per_layer = g.reshape(g.shape[0], -1) if name.startswith("blocks/") else g.reshape(1, -1)
+        if not (bool(torch.isfinite(g).all()) and bool((per_layer.abs().amax(1) > 0).all())):
+            bad.append(name)
+        norms[name] = float(g.double().norm())
+    layer0 = {n.split("/")[-1]: norms[n] for n in norms if n.startswith("blocks/0/l0/mixer/")}
+    line = {"phase": "train_recurrent", "what": "step-0 gradients, kernel path", "arch": arch,
+            "loss": float(loss.detach()), "parameters": len(grads),
+            "finite_and_nonzero_in_every_layer": len(grads) - len(bad), "failed": bad,
+            "global_norm": float(np.sqrt(sum(v * v for v in norms.values()))),
+            "first_mixer_grad_norms": layer0}
+    emit(line)
+    del grads, leaves, params, loss
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"train_recurrent {arch}: step-0 gradients zero or not finite: {bad}")
+
+
 # train_parity's tolerances: (each gradient's max error relative to its
 # largest entry, loss abs error).  float32 runs the CUDA-core kernels in full
 # fp32.  bf16 runs the wgmma kernels: they round P and dS to bf16 where the
@@ -972,13 +1211,37 @@ def _standard_fan_in(torch, params):
     return params
 
 
+# train_parity's models: (arch, layers, cut, each kernel's launches on one
+# kernel path's loss and gradients, forward and backward alike)
+TRAIN_PARITY = (
+    ("llama3.2-3b", 2, "depth 28 -> 2; widths as published", {"flash_attention": 2}),
+    ("falcon-mamba-7b", 2, "depth 64 -> 2; widths as published", {"mamba_scan": 2}),
+    ("recurrentgemma-9b", 3, "depth 38 -> 3, one (rglru, rglru, local_attn) pattern; widths "
+     "as published", {"rglru_scan": 2, "flash_attention": 1}))
+
+
+def _kernel_counters():
+    """{kernel: (module, attribute)} of the launch counts of every kernel a
+    training step runs, forward and backward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import rglru_scan as rs
+
+    return {"mamba_scan": (ms, "launches"), "mamba_scan_bwd": (ms, "bwd_launches"),
+            "rglru_scan": (rs, "launches"), "rglru_scan_bwd": (rs, "bwd_launches"),
+            "flash_attention": (fa, "launches"), "flash_attention_bwd": (fb, "launches")}
+
+
 def phase_train_parity(torch):
     """Loss and gradients on the kernel path against the plain path, from
-    the same weights and batch, at llama3.2-3b widths cut to depth 2: in
-    float32 (the "cuda_core" route) at the JAX init, and in bf16 (the
-    "wgmma" route) with wq and wk at the standard fan-in, beside the plain
-    path against itself at block_k 64 (bf16's noise floor); the bf16 kernel
-    path at the JAX init is reported too, not held to a bound."""
+    the same weights and batch, at the widths of llama3.2-3b (depth 2),
+    falcon-mamba-7b (depth 2) and recurrentgemma-9b (one pattern): in
+    float32 (the CUDA-core attention kernels) at the JAX init, and in bf16
+    (the wgmma ones), where the archs with attention take wq and wk at the
+    standard fan-in, beside the plain path against itself at block_k 64
+    (bf16's noise floor); their bf16 kernel path at the JAX init is reported
+    too, not held to a bound."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.kernels import flash_attention as fa
@@ -998,50 +1261,57 @@ def phase_train_parity(torch):
         return {n: float((a[n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
                 for n, g in b.items()}
 
+    counters = _kernel_counters()
     failed = []
-    for dtype, (tol, loss_tol) in TRAIN_PARITY_TOL.items():
-        cfg = dataclasses.replace(get_config("llama3.2-3b"), dtype=dtype, n_layers=2)
-        params = DecoderLM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
-        batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticPipeline(DataConfig(
-            vocab_size=cfg.vocab_size, global_batch=2, seq_len=256)).batch_at(0).items()}
-        line = {"phase": "train_parity", "arch": "llama3.2-3b", "layers": 2, "dtype": dtype,
-                "route": fa._route(getattr(torch, dtype), cfg.head_dim),
-                "cut": "depth 28 -> 2; widths as published", "batch": 2, "seq_len": 256}
-        if dtype == "bfloat16":
+    for arch, layers, cut, per_path in TRAIN_PARITY:
+        attention = "flash_attention" in per_path
+        for dtype, (tol, loss_tol) in TRAIN_PARITY_TOL.items():
+            cfg = dataclasses.replace(get_config(arch), dtype=dtype, n_layers=layers)
+            params = DecoderLM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+            batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticPipeline(DataConfig(
+                vocab_size=cfg.vocab_size, global_batch=2, seq_len=256)).batch_at(0).items()}
+            route = fa._route(getattr(torch, dtype), cfg.head_dim) if attention else None
+            line = {"phase": "train_parity", "arch": arch, "layers": layers, "dtype": dtype,
+                    "route": route, "cut": cut, "batch": 2, "seq_len": 256}
+            if dtype == "bfloat16" and attention:
+                loss_k, grads_k = loss_and_grads(cfg, params, batch, "cuda")
+                loss_p, grads_p = loss_and_grads(cfg, params, batch, "torch")
+                err = rel(grads_k, grads_p)
+                line["jax_init_not_bounded"] = {
+                    "loss_abs_err": abs(loss_k - loss_p), "max_grad_err_rel_to_scale": max(
+                        err.values()), "worst_grad": max(err, key=err.get)}
+                line["init"] = "wq, wk at the standard fan-in (d_model)"
+                params = _standard_fan_in(torch, params)
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            _zero_routes()
             loss_k, grads_k = loss_and_grads(cfg, params, batch, "cuda")
+            launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+            routes = {"flash_attention": dict(fa.launches_by_route),
+                      "flash_attention_bwd": dict(fb.launches_by_route)}
             loss_p, grads_p = loss_and_grads(cfg, params, batch, "torch")
             err = rel(grads_k, grads_p)
-            line["jax_init_not_bounded"] = {
-                "loss_abs_err": abs(loss_k - loss_p), "max_grad_err_rel_to_scale": max(
-                    err.values()), "worst_grad": max(err, key=err.get)}
-            line["init"] = "wq, wk at the standard fan-in (d_model)"
-            params = _standard_fan_in(torch, params)
-        fa.launches = fb.launches = 0
-        _zero_routes()
-        loss_k, grads_k = loss_and_grads(cfg, params, batch, "cuda")
-        launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
-        routes = {"flash_attention": dict(fa.launches_by_route),
-                  "flash_attention_bwd": dict(fb.launches_by_route)}
-        loss_p, grads_p = loss_and_grads(cfg, params, batch, "torch")
-        err = rel(grads_k, grads_p)
-        worst = max(err, key=err.get)
-        if dtype == "bfloat16":
-            floor = rel(loss_and_grads(cfg, params, batch, "torch", attn_block_k=64)[1], grads_p)
-            line["plain_vs_plain_block_k_64_max_rel"] = max(floor.values())
-        finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
-        line.update({"loss_kernel": loss_k, "loss_plain": loss_p,
-                     "loss_abs_err": abs(loss_k - loss_p), "loss_tol": loss_tol,
-                     "max_grad_err_rel_to_scale": err[worst], "worst_grad": worst,
-                     "grad_err_rel_to_scale": err, "tol_rel_to_scale": tol, "finite": finite,
-                     "launches_kernel_path": launches, "launches_by_route": routes})
-        emit(line)
-        del params, grads_k, grads_p
-        torch.cuda.empty_cache()
-        want_routes = {k: {r: 2 if r == line["route"] else 0 for r in fa.ROUTES} for k in routes}
-        if not (err[worst] <= tol and abs(loss_k - loss_p) <= loss_tol and finite
-                and launches == {"flash_attention": 2, "flash_attention_bwd": 2}
-                and routes == want_routes):
-            failed.append(line)
+            worst = max(err, key=err.get)
+            if dtype == "bfloat16" and attention:
+                floor = rel(loss_and_grads(cfg, params, batch, "torch", attn_block_k=64)[1],
+                            grads_p)
+                line["plain_vs_plain_block_k_64_max_rel"] = max(floor.values())
+            finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+            line.update({"loss_kernel": loss_k, "loss_plain": loss_p,
+                         "loss_abs_err": abs(loss_k - loss_p), "loss_tol": loss_tol,
+                         "max_grad_err_rel_to_scale": err[worst], "worst_grad": worst,
+                         "grad_err_rel_to_scale": err, "tol_rel_to_scale": tol,
+                         "finite": finite, "launches_kernel_path": launches,
+                         "launches_by_route": routes})
+            emit(line)
+            del params, grads_k, grads_p
+            torch.cuda.empty_cache()
+            want = {k: per_path.get(k.removesuffix("_bwd"), 0) for k in counters}
+            want_routes = {k: {r: want[k] if r == route else 0 for r in fa.ROUTES}
+                           for k in routes}
+            if not (err[worst] <= tol and abs(loss_k - loss_p) <= loss_tol and finite
+                    and launches == want and routes == want_routes):
+                failed.append(line)
     if failed:
         raise AssertionError(f"train_parity: {failed}")
 
@@ -1191,19 +1461,25 @@ def main(argv=None) -> int:
     if "store" in only:
         phase_store(torch)
     train = phase_train(torch) if "train" in only else None
+    recurrent = phase_train_recurrent(torch) if "train_recurrent" in only else None
     if "train_parity" in only:
         phase_train_parity(torch)
     lifecycle = phase_lifecycle(torch) if "lifecycle" in only else None
     emit({"phase": "time", "seconds": time.perf_counter() - t_start})
-    if cases is None or launches is None or train is None or lifecycle is None:
+    if None in (cases, launches, train, recurrent, lifecycle):
         return 0  # a partial run checks what it ran and claims nothing more
 
     # each kernel's launches over the phase of the main path that runs it:
     # serving (the attention forward, decode, the scans), training (the
-    # attention backward) and the lifecycle's commits (top-k, checksums).
-    # One CUDA kernel replaces both Pallas checksums: the main path calls it
-    # as a wave, and its one-segment call (fletcher32) rides in that entry
+    # attention backward at llama's head_dim 128), the recurrent family's
+    # training (the scans' backward, the attention backward at head_dim 256)
+    # and the lifecycle's commits (top-k, checksums).  One CUDA kernel
+    # replaces both Pallas checksums: the main path calls it as a wave, and
+    # its one-segment call (fletcher32) rides in that entry
     ran = dict(launches, flash_attention_bwd=train["flash_attention_bwd"],
+               flash_attention_bwd_d256=recurrent["flash_attention_bwd"],
+               mamba_scan_bwd=recurrent["mamba_scan_bwd"],
+               rglru_scan_bwd=recurrent["rglru_scan_bwd"],
                topk_compress=lifecycle["topk_compress"],
                fletcher32_wave=lifecycle["fletcher32_wave"])
     kernels = []
@@ -1217,6 +1493,15 @@ def main(argv=None) -> int:
              "src/repro/kernels/decode_attention.py:70"),
             ("rglru", "rglru_scan", "rglru_scan", "src/repro/kernels/rglru_scan.py:57"),
             ("mamba", "mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan.py:68"),
+            ("flash_bwd_d256", "flash_attention_bwd_d256", "flash_attention_bwd_sm90",
+             "src/repro/kernels/flash_attention.py:91 (its gradient at head_dim 256; JAX "
+             "differentiates src/repro/kernels/ref.py:flash_attention_reference)"),
+            ("mamba_bwd", "mamba_scan_bwd", "mamba_scan",
+             "src/repro/kernels/mamba_scan.py:68 (its gradient; JAX differentiates "
+             "src/repro/kernels/ref.py:mamba_scan_reference)"),
+            ("rglru_bwd", "rglru_scan_bwd", "rglru_scan",
+             "src/repro/kernels/rglru_scan.py:57 (its gradient; JAX differentiates "
+             "src/repro/kernels/ref.py:rglru_reference)"),
             ("topk", "topk_compress", "topk_compress", "src/repro/kernels/topk_compress.py:42"),
             ("fletcher32_wave", "fletcher32_wave", "log_checksum",
              "src/repro/kernels/log_checksum.py:133, and :65 (fletcher32, its one-segment "
@@ -1229,9 +1514,9 @@ def main(argv=None) -> int:
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "checked": True})
-        if key in ("flash", "flash_bwd", "decode"):  # the main path's kernel is the bf16 one
+        if key in ("flash", "flash_bwd", "flash_bwd_d256", "decode"):  # the bf16 kernel's
             kernels[-1].update(design=DECODE_DESIGN if key == "decode" else FLASH_DESIGN,
-                               fp32_source=f"src/repro_torch/kernels/csrc/{name}.cu")
+                               fp32_source=f"src/repro_torch/kernels/csrc/{source[:-5]}.cu")
         if key == "decode":  # at recurrentgemma-9b's shape too, and SDPA over the live keys
             rg = cases["decode_rgemma"]
             kernels[-1].update(library_live_ms=c["library_live_ms"], at_d256={
@@ -1239,6 +1524,12 @@ def main(argv=None) -> int:
                                    "bound_by", "library_ms", "library_live_ms")})
         if key == "mamba":
             kernels[-1]["design"] = MAMBA_DESIGN
+        if key in SCAN_BWD_DESIGN:  # also checked at train_recurrent's own shape
+            tr = cases[f"{key}_train"]
+            kernels[-1].update(design=SCAN_BWD_DESIGN[key], at_train_shape={
+                k: tr[k] for k in ("case", "shape", "max_err", "max_err_rel_to_scale",
+                                   "bitwise_repeat", "kernel_ms", "plain_ms", "bound_ms",
+                                   "bound_by")})
     one = cases["fletcher32"]  # checked in its kernel case; the main path never makes the call
     kernels[-1]["one_segment"] = {"name": "fletcher32", "case": one["case"],
                                   "max_abs_err": one["max_err"], "ms": one["kernel_ms"],

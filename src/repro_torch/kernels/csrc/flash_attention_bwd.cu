@@ -18,40 +18,46 @@
 // Three kernels, none with atomics, so two runs give the same bits (bitwise
 // resume of training rests on it):
 //   1. bwd_delta: D = rowsum(dO * O), one warp per row.
-//   2. bwd_dkdv: one 256-thread block per (64-key tile, KV head, batch).  K and V
+//   2. bwd_dkdv: one 256-thread block per (key tile, KV head, batch).  K and V
 //      stay in shared memory; the block loops over the group's query heads and
-//      over the 64-row q tiles the masks let see its keys, recomputing P and dS
-//      and keeping its dK and dV tile in fp32 registers (4 keys x D/16 columns a
+//      over the q tiles the masks let see its keys, recomputing P and dS and
+//      keeping its dK and dV tile in fp32 registers (R keys x D/16 columns a
 //      thread).
-//   3. bwd_dq: one block per (64-row q tile, query head, batch), looping over the
-//      KV tiles in the mask bounds, with its dQ tile in registers.
-// Each thread owns a 4x4 block of the 64x64 score tiles, as in the forward.
+//   3. bwd_dq: one block per (q tile, query head, batch), looping over the KV
+//      tiles in the mask bounds, with its dQ tile in registers.
+// Tiles are BT x BT (BT = 64 rows and keys; 32 at D=256, where four 64-row
+// fp32 tiles would take 263 KB of shared memory, over the 227 KB a block may
+// have), and each thread owns an R x R block of the score tiles (R = BT / 16).
 //
-// What bounds it: the backward does 2.5x the forward's products (five 64x64xD
+// What bounds it: the backward does 2.5x the forward's products (five BTxBTxD
 // products a tile pair against the forward's two; dQ's kernel recomputes S and
 // dP, so seven are issued), compute-bound on the tensor cores' 989 TFLOP/s at
 // the training shape.  Like the forward it runs on CUDA cores with register
 // tiling; the wrapper sends it fp32 inputs only, and bf16 goes to the wgmma/TMA
-// kernels of flash_attention_bwd_sm90.cu.  Head dims 32, 64 and 128: at D=256
-// the four 64-row fp32 tiles would take 263 KB of shared memory, over the 227 KB
-// a block may have.
+// kernels of flash_attention_bwd_sm90.cu.  Head dims 32, 64, 128 and 256.
 #include "tile.cuh"
 
 namespace {
 
 using repro::NEG_INF;
-constexpr int BM = 64;   // query rows per tile
-constexpr int BN = 64;   // keys per tile
 constexpr int NT = 256;  // threads per block: 16 row groups x 16 column lanes
 
 template <int D>
+struct Tiles {
+  static constexpr int BT = D == 256 ? 32 : 64;  // query rows and keys a tile
+  static constexpr int R = BT / 16;              // rows and columns a thread owns
+};
+
+template <int D>
 constexpr size_t smem_bytes_dkdv() {  // Q, dO, K, V tiles; P and dS; lse and D rows
-  return sizeof(float) * (size_t)(4 * 64 * (D + 1) + 2 * BM * (BN + 1) + 2 * BM);
+  constexpr int BT = Tiles<D>::BT;
+  return sizeof(float) * (size_t)(4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT);
 }
 
 template <int D>
 constexpr size_t smem_bytes_dq() {    // Q, dO, K, V tiles; dS; lse and D rows
-  return sizeof(float) * (size_t)(4 * 64 * (D + 1) + BM * (BN + 1) + 2 * BM);
+  constexpr int BT = Tiles<D>::BT;
+  return sizeof(float) * (size_t)(4 * BT * (D + 1) + BT * (BT + 1) + 2 * BT);
 }
 
 template <typename T, int D>
@@ -71,58 +77,60 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dO, float* __res
   if (lane == 0) delta[row] = s;
 }
 
-// Loads the lse and D values of q rows q0.. into shared memory; rows past Sq
-// get 0 (their P is masked to 0 anyway).
+// Loads the lse and D values of the BT q rows q0.. into shared memory; rows
+// past Sq get 0 (their P is masked to 0 anyway).
+template <int BT>
 __device__ __forceinline__ void load_rows(float* lse_s, float* dl_s, const float* lse,
                                           const float* delta, int q0, int Sq) {
-  if (threadIdx.x < BM) {
+  if (threadIdx.x < BT) {
     const int r = q0 + threadIdx.x;
     lse_s[threadIdx.x] = r < Sq ? lse[r] : 0.f;
     dl_s[threadIdx.x] = r < Sq ? delta[r] : 0.f;
   }
 }
 
-// The 64x64 tile pair (q rows q0.., keys k0..): this thread's 4x4 block of
+// The BTxBT tile pair (q rows q0.., keys k0..): this thread's RxR block of
 // P and dS, from the tiles in shared memory.
 template <int D>
-__device__ __forceinline__ void p_ds_tile(float (&p)[4][4], float (&ds)[4][4], const float* Qs,
+__device__ __forceinline__ void p_ds_tile(float (&p)[Tiles<D>::R][Tiles<D>::R],
+                                          float (&ds)[Tiles<D>::R][Tiles<D>::R], const float* Qs,
                                           const float* dOs, const float* Ks, const float* Vs,
                                           const float* lse_s, const float* dl_s, int q0, int k0,
                                           int Sq, int Sk, float scale, int causal, int window,
                                           int q_offset) {
-  constexpr int LDQ = D + 1;
+  constexpr int LDQ = D + 1, R = Tiles<D>::R;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  float s[4][4], dp[4][4];
+  float s[R][R], dp[R][R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
+    for (int c = 0; c < R; ++c) s[i][c] = dp[i][c] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
+    float qv[R], ov[R], kv[R], vv[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(tr * 4 + i) * LDQ + d];
-      ov[i] = dOs[(tr * 4 + i) * LDQ + d];
+    for (int i = 0; i < R; ++i) {
+      qv[i] = Qs[(tr * R + i) * LDQ + d];
+      ov[i] = dOs[(tr * R + i) * LDQ + d];
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < R; ++c) {
       kv[c] = Ks[(tc + 16 * c) * LDQ + d];
       vv[c] = Vs[(tc + 16 * c) * LDQ + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < R; ++c) {
         s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
         dp[i][c] = fmaf(ov[i], vv[c], dp[i][c]);
       }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr * 4 + i, qrow = q0 + r, qpos = qrow + q_offset;
+  for (int i = 0; i < R; ++i) {
+    const int r = tr * R + i, qrow = q0 + r, qpos = qrow + q_offset;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < R; ++c) {
       const int kpos = k0 + tc + 16 * c;
       bool ok = qrow < Sq && kpos < Sk;
       if (causal) ok = ok && kpos <= qpos;
@@ -139,77 +147,78 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dO, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Hq,
                 int Hkv, int Sq, int Sk, float scale, int causal, int window, int q_offset) {
+  constexpr int BT = Tiles<D>::BT, R = Tiles<D>::R;
   constexpr int LDQ = D + 1;   // padded rows: column reads across rows hit distinct banks
-  constexpr int LDP = BN + 1;
+  constexpr int LDP = BT + 1;
   constexpr int CW = D / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
-  float* Ks = smem;             // [BN][LDQ]
-  float* Vs = Ks + BN * LDQ;    // [BN][LDQ]
-  float* Qs = Vs + BN * LDQ;    // [BM][LDQ]
-  float* dOs = Qs + BM * LDQ;   // [BM][LDQ]
-  float* Ps = dOs + BM * LDQ;   // [BM][LDP]
-  float* dSs = Ps + BM * LDP;   // [BM][LDP]
-  float* lse_s = dSs + BM * LDP;
-  float* dl_s = lse_s + BM;
+  float* Ks = smem;             // [BT][LDQ]
+  float* Vs = Ks + BT * LDQ;    // [BT][LDQ]
+  float* Qs = Vs + BT * LDQ;    // [BT][LDQ]
+  float* dOs = Qs + BT * LDQ;   // [BT][LDQ]
+  float* Ps = dOs + BT * LDQ;   // [BT][LDP]
+  float* dSs = Ps + BT * LDP;   // [BT][LDP]
+  float* lse_s = dSs + BT * LDP;
+  float* dl_s = lse_s + BT;
 
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BN;
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BT;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const int keys = min(BN, Sk - k0);
+  const int keys = min(BT, Sk - k0);
   const size_t kv_off = (size_t)(b * Hkv + hk) * Sk * D + (size_t)k0 * D;
-  repro::load_tile<T, D, NT>(Ks, LDQ, k + kv_off, BN, keys);
-  repro::load_tile<T, D, NT>(Vs, LDQ, v + kv_off, BN, keys);
+  repro::load_tile<T, D, NT>(Ks, LDQ, k + kv_off, BT, keys);
+  repro::load_tile<T, D, NT>(Vs, LDQ, v + kv_off, BT, keys);
 
   // the q rows that see a key of this tile
   const int k_last = k0 + keys - 1;
   int q_begin = causal ? max(0, k0 - q_offset) : 0;
-  q_begin = (q_begin / BM) * BM;
+  q_begin = (q_begin / BT) * BT;
   const int q_end = window > 0 ? min(Sq, k_last + window - q_offset) : Sq;
 
-  float acc_k[4][CW], acc_v[4][CW];
+  float acc_k[R][CW], acc_v[R][CW];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < CW; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const size_t row0 = (size_t)(b * Hq + h) * Sq;
-    for (int q0 = q_begin; q0 < q_end; q0 += BM) {
+    for (int q0 = q_begin; q0 < q_end; q0 += BT) {
       __syncthreads();  // the previous tile's readers are done
-      repro::load_tile<T, D, NT>(Qs, LDQ, q + (row0 + q0) * D, BM, Sq - q0);
-      repro::load_tile<T, D, NT>(dOs, LDQ, dO + (row0 + q0) * D, BM, Sq - q0);
-      load_rows(lse_s, dl_s, lse + row0, delta + row0, q0, Sq);
+      repro::load_tile<T, D, NT>(Qs, LDQ, q + (row0 + q0) * D, BT, Sq - q0);
+      repro::load_tile<T, D, NT>(dOs, LDQ, dO + (row0 + q0) * D, BT, Sq - q0);
+      load_rows<BT>(lse_s, dl_s, lse + row0, delta + row0, q0, Sq);
       __syncthreads();
 
-      float p[4][4], ds[4][4];
+      float p[R][R], ds[R][R];
       p_ds_tile<D>(p, ds, Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Sq, Sk, scale, causal, window,
                    q_offset);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          Ps[(tr * 4 + i) * LDP + tc + 16 * c] = p[i][c];
-          dSs[(tr * 4 + i) * LDP + tc + 16 * c] = ds[i][c];
+        for (int c = 0; c < R; ++c) {
+          Ps[(tr * R + i) * LDP + tc + 16 * c] = p[i][c];
+          dSs[(tr * R + i) * LDP + tc + 16 * c] = ds[i][c];
         }
       __syncthreads();
 
-      // dV += P^T dO and dK += dS^T Q over the tile's 64 rows; this thread
-      // holds keys tr*4+i and columns tc+16c
+      // dV += P^T dO and dK += dS^T Q over the tile's BT rows; this thread
+      // holds keys tr*R+i and columns tc+16c
 #pragma unroll 2
-      for (int j = 0; j < BM; ++j) {
-        float pv[4], sv[4];
+      for (int j = 0; j < BT; ++j) {
+        float pv[R], sv[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[j * LDP + tr * 4 + i];
-          sv[i] = dSs[j * LDP + tr * 4 + i];
+        for (int i = 0; i < R; ++i) {
+          pv[i] = Ps[j * LDP + tr * R + i];
+          sv[i] = dSs[j * LDP + tr * R + i];
         }
 #pragma unroll
         for (int c = 0; c < CW; ++c) {
           const float ov = dOs[j * LDQ + tc + 16 * c];
           const float qv = Qs[j * LDQ + tc + 16 * c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < R; ++i) {
             acc_v[i][c] = fmaf(pv[i], ov, acc_v[i][c]);
             acc_k[i][c] = fmaf(sv[i], qv, acc_k[i][c]);
           }
@@ -219,8 +228,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int r = tr * R + i;
     if (r < keys) {
       const size_t off = kv_off + (size_t)r * D;
 #pragma unroll
@@ -238,75 +247,76 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
               const T* __restrict__ dO, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dq, int Hq, int Hkv, int Sq,
               int Sk, float scale, int causal, int window, int q_offset) {
+  constexpr int BT = Tiles<D>::BT, R = Tiles<D>::R;
   constexpr int LDQ = D + 1;
-  constexpr int LDP = BN + 1;
+  constexpr int LDP = BT + 1;
   constexpr int CW = D / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;             // [BM][LDQ]
-  float* dOs = Qs + BM * LDQ;   // [BM][LDQ]
-  float* Ks = dOs + BM * LDQ;   // [BN][LDQ]
-  float* Vs = Ks + BN * LDQ;    // [BN][LDQ]
-  float* dSs = Vs + BN * LDQ;   // [BM][LDP]
-  float* lse_s = dSs + BM * LDP;
-  float* dl_s = lse_s + BM;
+  float* Qs = smem;             // [BT][LDQ]
+  float* dOs = Qs + BT * LDQ;   // [BT][LDQ]
+  float* Ks = dOs + BT * LDQ;   // [BT][LDQ]
+  float* Vs = Ks + BT * LDQ;    // [BT][LDQ]
+  float* dSs = Vs + BT * LDQ;   // [BT][LDP]
+  float* lse_s = dSs + BT * LDP;
+  float* dl_s = lse_s + BT;
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BT;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const int rows = min(BM, Sq - q0);
+  const int rows = min(BT, Sq - q0);
   const size_t row0 = (size_t)(b * Hq + h) * Sq;
   const T* kb = k + (size_t)(b * Hkv + hk) * Sk * D;
   const T* vb = v + (size_t)(b * Hkv + hk) * Sk * D;
-  repro::load_tile<T, D, NT>(Qs, LDQ, q + (row0 + q0) * D, BM, rows);
-  repro::load_tile<T, D, NT>(dOs, LDQ, dO + (row0 + q0) * D, BM, rows);
-  load_rows(lse_s, dl_s, lse + row0, delta + row0, q0, Sq);
+  repro::load_tile<T, D, NT>(Qs, LDQ, q + (row0 + q0) * D, BT, rows);
+  repro::load_tile<T, D, NT>(dOs, LDQ, dO + (row0 + q0) * D, BT, rows);
+  load_rows<BT>(lse_s, dl_s, lse + row0, delta + row0, q0, Sq);
 
   // the keys these rows see, as in the forward
   const int q_lo = q0 + q_offset, q_hi = q_lo + rows - 1;
   int k_begin = 0, k_end = Sk;
   if (window > 0) k_begin = max(0, q_lo - window + 1);
   if (causal) k_end = min(Sk, q_hi + 1);
-  k_begin = (k_begin / BN) * BN;
+  k_begin = (k_begin / BT) * BT;
 
-  float acc[4][CW];
+  float acc[R][CW];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BN) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BT) {
     __syncthreads();
-    repro::load_tile<T, D, NT>(Ks, LDQ, kb + (size_t)k0 * D, BN, Sk - k0);
-    repro::load_tile<T, D, NT>(Vs, LDQ, vb + (size_t)k0 * D, BN, Sk - k0);
+    repro::load_tile<T, D, NT>(Ks, LDQ, kb + (size_t)k0 * D, BT, Sk - k0);
+    repro::load_tile<T, D, NT>(Vs, LDQ, vb + (size_t)k0 * D, BT, Sk - k0);
     __syncthreads();
 
-    float p[4][4], ds[4][4];
+    float p[R][R], ds[R][R];
     p_ds_tile<D>(p, ds, Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Sq, Sk, scale, causal, window,
                  q_offset);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dSs[(tr * 4 + i) * LDP + tc + 16 * c] = ds[i][c];
+      for (int c = 0; c < R; ++c) dSs[(tr * R + i) * LDP + tc + 16 * c] = ds[i][c];
     __syncthreads();
 
-    // dQ += dS K; this thread holds rows tr*4+i and columns tc+16c
+    // dQ += dS K; this thread holds rows tr*R+i and columns tc+16c
 #pragma unroll 4
-    for (int j = 0; j < BN; ++j) {
-      float sv[4];
+    for (int j = 0; j < BT; ++j) {
+      float sv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(tr * 4 + i) * LDP + j];
+      for (int i = 0; i < R; ++i) sv[i] = dSs[(tr * R + i) * LDP + j];
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
         const float kv = Ks[j * LDQ + tc + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(sv[i], kv, acc[i][c]);
+        for (int i = 0; i < R; ++i) acc[i][c] = fmaf(sv[i], kv, acc[i][c]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int r = tr * R + i;
     if (r < rows) {
       T* out = dq + (row0 + q0 + r) * D;
 #pragma unroll
@@ -332,11 +342,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  constexpr int BT = Tiles<D>::BT;
   constexpr size_t smem_kv = smem_bytes_dkdv<D>();
   err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_kv);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<T, D><<<dim3((Sk + BN - 1) / BN, Hkv, B), NT, smem_kv, stream>>>(
+  bwd_dkdv_kernel<T, D><<<dim3((Sk + BT - 1) / BT, Hkv, B), NT, smem_kv, stream>>>(
       q_, k_, v_, dO_, lse_, delta_, static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Sq, Sk,
       scale, causal, window, q_offset);
   err = cudaGetLastError();
@@ -346,7 +357,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   err = cudaFuncSetAttribute(bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<T, D><<<dim3((Sq + BM - 1) / BM, Hq, B), NT, smem_q, stream>>>(
+  bwd_dq_kernel<T, D><<<dim3((Sq + BT - 1) / BT, Hq, B), NT, smem_q, stream>>>(
       q_, k_, v_, dO_, lse_, delta_, static_cast<T*>(dq), Hq, Hkv, Sq, Sk, scale, causal, window,
       q_offset);
   return cudaGetLastError();
@@ -363,6 +374,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const
     case 32: return launch<T, 32>(REPRO_FAB_ARGS);
     case 64: return launch<T, 64>(REPRO_FAB_ARGS);
     case 128: return launch<T, 128>(REPRO_FAB_ARGS);
+    case 256: return launch<T, 256>(REPRO_FAB_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FAB_ARGS

@@ -42,10 +42,17 @@
 // What bounds it: the tensor cores.  At llama3.2-3b's training shape (B=4,
 // 24/8 heads, S=1024, D=128, causal) the backward needs 2.5x the forward's
 // 25.8 GFLOP (about 65 us at 989 TFLOP/s); the dQ kernel recomputes S and dP,
-// so seven products are issued for the five needed.  Head dims 32, 64 and
-// 128 (BQ = 32 at D=128: dK and dV take 128 accumulator registers a thread).
-// At D=256 dK and dV of 64 keys alone would take 256 registers a thread, over
-// the 255 a thread may have.
+// so seven products are issued for the five needed.  Head dims 32, 64, 128
+// and 256 (BQ = 32 at D=128 and 256: dK and dV take 128 accumulator
+// registers a thread).  At D=256 dK and dV of 64 keys would take 256
+// registers a thread, over the 255 a thread may have, so the dK/dV kernel
+// splits D between its two consumer warpgroups: a block takes 64 keys, both
+// warpgroups compute S^T and dP^T for them over all of D, and each keeps the
+// dK and dV of one half of the columns (64 x 128, 128 registers), at 1.5x
+// the products.  The dQ kernel takes K/V tiles of 32 keys at D=256, so the
+// two 64-row Q and dO slabs (128 KB) and a two-stage ring of K and V (64 KB)
+// fit the 227 KB of shared memory a block may have, and dQ's 64 x 256
+// accumulator (128 registers) leaves room for S and dP.
 #include "sm90.cuh"
 
 namespace {
@@ -62,9 +69,12 @@ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 template <int D>
 struct DkDv {
-  static constexpr int BQ = D == 128 ? 32 : 64;  // q rows a tile
+  static constexpr bool SPLIT = D == 256;        // the warpgroups split D, not the keys
+  static constexpr int KEYS = SPLIT ? WG_ROWS : CONSUMERS * WG_ROWS;  // keys a block
+  static constexpr int DW = SPLIT ? D / CONSUMERS : D;  // dK, dV columns a warpgroup
+  static constexpr int BQ = D >= 128 ? 32 : 64;  // q rows a tile
   static constexpr int STAGES = 3;
-  using KVT = Tile<CONSUMERS * WG_ROWS, D>;      // the block's keys
+  using KVT = Tile<KEYS, D>;                     // the block's keys
   using QT = Tile<BQ, D>;                        // a q or dO tile
   static constexpr int STAGE_BYTES = round_up(2 * QT::BYTES + BQ * 8, 1024);
   static constexpr int ST_OFF = 2 * KVT::BYTES;
@@ -74,7 +84,7 @@ struct DkDv {
 
 template <int D>
 struct Dq {
-  static constexpr int BN = 64;  // keys a tile
+  static constexpr int BN = D == 256 ? 32 : 64;  // keys a tile
   static constexpr int STAGES = 2;
   using QT = Tile<WG_ROWS, D>;
   using KT = Tile<BN, D>;
@@ -160,8 +170,8 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const uint32_t full_bar = kv_bar + 8, empty_bar = kv_bar + 8 * (1 + STAGES);
 
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, G = Hq / Hkv;
-  const int k0 = blockIdx.y * CONSUMERS * WG_ROWS;  // causal: low key tiles are the longest
-  const int k_last = min(k0 + CONSUMERS * WG_ROWS, Sk) - 1;
+  const int k0 = blockIdx.y * C::KEYS;  // causal: low key tiles are the longest
+  const int k_last = min(k0 + C::KEYS, Sk) - 1;
   // the q rows that see a key of this block
   int q_begin = causal ? max(0, k0 - q_offset) : 0;
   q_begin = (q_begin / BQ) * BQ;
@@ -201,16 +211,20 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   }
   setmaxnreg_inc<240>();
 
-  // a consumer warpgroup: keys kb..kb + 63
-  const int kb = k0 + wg * WG_ROWS;
+  // a consumer warpgroup: keys kb..kb + 63, dK and dV columns col0..col0 + DW - 1
+  constexpr int DW = C::DW;
+  const int krow = C::SPLIT ? 0 : wg * WG_ROWS;  // its keys' first row in the K/V tiles
+  const int kb = k0 + krow, col0 = C::SPLIT ? wg * DW : 0;
+  // its columns of the Q and dO tiles, as MN-major operands: whole column blocks
+  const uint32_t col_off = (col0 / QT::CB) * QT::BLOCK_BYTES;
   const int t = threadIdx.x % 128, lane = t % 32;
   const int r0 = (t / 32) * 16 + lane / 4;  // this thread's keys: kb + r0 and kb + r0 + 8
   const int cq = 2 * (lane % 4);
   const int key0 = kb + r0, key1 = key0 + 8;
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DW / 2], dv_acc[DW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(kv_bar, 0);
   for (int it = 0; it < n_it; ++it) {
@@ -228,10 +242,10 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        mma_ss<0, 0>(st, KVT::kmajor(k_s, wg * WG_ROWS, kk), QT::kmajor(q_tile, 0, kk), kk > 0);
+        mma_ss<0, 0>(st, KVT::kmajor(k_s, krow, kk), QT::kmajor(q_tile, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        mma_ss<0, 0>(dpt, KVT::kmajor(v_s, wg * WG_ROWS, kk), QT::kmajor(do_tile, 0, kk), kk > 0);
+        mma_ss<0, 0>(dpt, KVT::kmajor(v_s, krow, kk), QT::kmajor(do_tile, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
@@ -254,8 +268,8 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
-        mma_rs<1>(dv_acc, pa[kk], QT::mnmajor(do_tile, kk), 1);
-        mma_rs<1>(dk_acc, sa[kk], QT::mnmajor(q_tile, kk), 1);
+        mma_rs<1>(dv_acc, pa[kk], QT::mnmajor(do_tile + col_off, kk), 1);
+        mma_rs<1>(dk_acc, sa[kk], QT::mnmajor(q_tile + col_off, kk), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -268,8 +282,8 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 
   const size_t rows = (size_t)(b * Hkv + hk) * Sk;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + cq;
+  for (int j = 0; j < DW / 8; ++j) {
+    const int col = col0 + 8 * j + cq;
     if (key0 < Sk) {
       *reinterpret_cast<uint32_t*>(dk + (rows + key0) * D + col) =
           pack_bf16(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
@@ -444,8 +458,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   CUtensorMap tq, tdo, tk, tv, tq2, tdo2, tk2, tv2;
   int err = repro::make_tmap_3d(&tq, q, D, Sq, B * Hq, KV::BQ, KV::QT::SW);
   if (!err) err = repro::make_tmap_3d(&tdo, dO, D, Sq, B * Hq, KV::BQ, KV::QT::SW);
-  if (!err) err = repro::make_tmap_3d(&tk, k, D, Sk, B * Hkv, CONSUMERS * WG_ROWS, KV::KVT::SW);
-  if (!err) err = repro::make_tmap_3d(&tv, v, D, Sk, B * Hkv, CONSUMERS * WG_ROWS, KV::KVT::SW);
+  if (!err) err = repro::make_tmap_3d(&tk, k, D, Sk, B * Hkv, KV::KEYS, KV::KVT::SW);
+  if (!err) err = repro::make_tmap_3d(&tv, v, D, Sk, B * Hkv, KV::KEYS, KV::KVT::SW);
   if (!err) err = repro::make_tmap_3d(&tq2, q, D, Sq, B * Hq, WG_ROWS, Q::QT::SW);
   if (!err) err = repro::make_tmap_3d(&tdo2, dO, D, Sq, B * Hq, WG_ROWS, Q::QT::SW);
   if (!err) err = repro::make_tmap_3d(&tk2, k, D, Sk, B * Hkv, Q::BN, Q::KT::SW);
@@ -456,7 +470,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   e = cudaFuncSetAttribute(bwd_dkdv_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            KV::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid_kv(B * Hkv, (Sk + CONSUMERS * WG_ROWS - 1) / (CONSUMERS * WG_ROWS));
+  const dim3 grid_kv(B * Hkv, (Sk + KV::KEYS - 1) / KV::KEYS);
   bwd_dkdv_sm90<D><<<grid_kv, NT, KV::SMEM, stream>>>(
       tq, tk, tv, tdo, ld2, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Hq,
       Hkv, Sq, Sq_pad, Sk, scale, scale_log2, causal, window, q_offset);
@@ -492,6 +506,7 @@ extern "C" int repro_flash_attention_bwd_sm90(const void* q, const void* k, cons
     case 32: return launch<32>(REPRO_FAB_ARGS);
     case 64: return launch<64>(REPRO_FAB_ARGS);
     case 128: return launch<128>(REPRO_FAB_ARGS);
+    case 256: return launch<256>(REPRO_FAB_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FAB_ARGS

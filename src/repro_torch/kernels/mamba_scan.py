@@ -17,7 +17,16 @@ ahead; y_t's sum over states is a tree within a lane, then a reduce-scatter
 across the four lanes every 16 steps.  One exponential per (b, t, d, n); see
 the note in the source (PERF.md has its times).
 
-``launches`` counts kernel launches; the plain path never adds to it.
+Training differentiates through ``MambaScan``, a ``torch.autograd.Function``
+whose forward also writes the fp32 state entering every ``CHUNK`` steps and
+whose backward is the hand-written reverse scan ``mamba_scan_backward``
+(``repro_mamba_scan_bwd`` in the same source; the JAX package has no
+backward kernel: it differentiates its XLA reference).  Its plain version is
+``ref.mamba_scan_backward_reference``, the same formulas.
+
+``launches`` counts forward kernel launches, ``bwd_launches`` backward calls
+(one per call: the C entry point issues the reverse scan and the fixed-order
+sums over blocks); the plain path never adds to either.
 """
 
 from __future__ import annotations
@@ -28,21 +37,26 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .ref import mamba_scan_reference
+from .ref import mamba_scan_backward_reference, mamba_scan_reference
 
 STATE_DIMS = (8, 16)
+CHUNK = 32       # steps between the forward's checkpoints: the kernels' tile
+CHANNELS = 64    # channels a block: the backward's partial sums of dBm, dCm (the kernel
+                 # refuses scratch sized for another count)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mamba_scan")
-    fn = lib.repro_mamba_scan
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn, types in ((lib.repro_mamba_scan, [p] * 10 + [i] * 5 + [p]),
+                      (lib.repro_mamba_scan_bwd, [p] * 18 + [i] * 6 + [p])):
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -65,14 +79,46 @@ def mamba_scan(
     Cm: torch.Tensor,     # [B, S, N]
     D: torch.Tensor,      # [Din] fp32
     h0: Optional[torch.Tensor] = None,  # [B, Din, N] fp32
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y [B, S, Din] in x's dtype, hT [B, Din, N] fp32).
+    *,
+    checkpoints: bool = False,
+):
+    """(y [B, S, Din] in x's dtype, hT [B, Din, N] fp32, ckpt).  With
+    `checkpoints`, ckpt is the fp32 state entering every CHUNK steps,
+    [B, ceil(S / CHUNK), Din, N]: what ``mamba_scan_backward`` starts from.
+    It is None without `checkpoints`, and on the CPU, whose plain backward
+    recomputes the states.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel, or
     raise when the kernel does not take them: nothing falls back.
     """
     if x.device.type == "cpu":
-        return mamba_scan_reference(x, delta, A, Bm, Cm, D, h0)
+        return (*mamba_scan_reference(x, delta, A, Bm, Cm, D, h0), None)
+    b, s, din, n = _check_inputs(x, delta, A, Bm, Cm, D, h0)
+    y = torch.empty_like(x)
+    hT = torch.empty((b, din, n), dtype=torch.float32, device=x.device)
+    ckpt = (torch.empty((b, -(-s // CHUNK), din, n), dtype=torch.float32, device=x.device)
+            if checkpoints else None)
+    if x.numel() == 0:
+        return y, hT, ckpt
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().repro_mamba_scan(
+            x.data_ptr(), delta.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            D.data_ptr(), _ptr(h0), y.data_ptr(), hT.data_ptr(), _ptr(ckpt),
+            _DTYPE_CODES[x.dtype], b, s, din, n, stream)
+    if err:
+        raise RuntimeError(f"mamba_scan: kernel launch failed with cudaError {err}")
+    global launches
+    launches += 1
+    return y, hT, ckpt
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _check_inputs(x, delta, A, Bm, Cm, D, h0):
+    """(B, S, Din, N) of inputs the kernels take; raises on any other."""
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {x.device}")
     if x.dim() != 3 or x.dtype not in _DTYPE_CODES:
@@ -96,18 +142,85 @@ def mamba_scan(
             raise ValueError(f"mamba_scan: {name} must be 16-byte aligned")
     if s == 0:
         raise ValueError("mamba_scan: empty sequence")
-    y = torch.empty_like(x)
-    hT = torch.empty((b, din, n), dtype=torch.float32, device=x.device)
+    return b, s, din, n
+
+
+def mamba_scan_backward(
+    x: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor],
+    dy: torch.Tensor,                    # [B, S, Din] in x's dtype
+    dhT: Optional[torch.Tensor] = None,  # [B, Din, N] fp32
+    ckpt: Optional[torch.Tensor] = None,  # the forward's checkpoints
+) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddelta, dA, dBm, dCm, dD, dh0), each in its input's dtype (dh0
+    fp32), from the forward's inputs and its checkpoints.
+
+    CPU tensors take the plain version (which recomputes the checkpoints
+    from h0).  CUDA tensors launch the kernel, or raise when the kernel does
+    not take them: nothing falls back.  Two calls give the same bits: the
+    sums over channels of dBm and dCm, and over rows of dA and dD, are
+    per-block partials summed in a fixed order, with no atomics.
+    """
+    if x.device.type == "cpu":
+        return mamba_scan_backward_reference(x, delta, A, Bm, Cm, D, h0, dy, dhT,
+                                             chunk=CHUNK)
+    b, s, din, n = _check_inputs(x, delta, A, Bm, Cm, D, h0)
+    _check("dy", dy, x.device, x.dtype, (b, s, din))
+    if dy.data_ptr() % 16:
+        raise ValueError("mamba_scan: dy must be 16-byte aligned")
+    if dhT is not None:
+        _check("dhT", dhT, x.device, torch.float32, (b, din, n))
+    if ckpt is None:
+        raise ValueError("mamba_scan_backward: a CUDA backward needs the forward's checkpoints")
+    _check("ckpt", ckpt, x.device, torch.float32, (b, -(-s // CHUNK), din, n))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dd = torch.empty_like(x), torch.empty_like(delta)
+    dA, dD, dh0 = torch.empty_like(A), torch.empty_like(D), torch.empty((b, din, n), **f32)
+    dbc = torch.empty((2, b, s, n), dtype=x.dtype, device=x.device)  # dBm, dCm
     if x.numel() == 0:
-        return y, hT
+        return dx, dd, dA, dbc[0], dbc[1], dD, dh0
+    part_bc = torch.empty((-(-din // CHANNELS), 2, b, s, n), **f32)
+    part_a, part_d = torch.empty((b, din, n), **f32), torch.empty((b, din), **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().repro_mamba_scan(
-            x.data_ptr(), delta.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            D.data_ptr(), h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-            hT.data_ptr(), _DTYPE_CODES[x.dtype], b, s, din, n, stream)
+        err = _lib().repro_mamba_scan_bwd(
+            *(t.data_ptr() for t in (x, delta, A, Bm, Cm, D, dy)), _ptr(dhT), ckpt.data_ptr(),
+            *(t.data_ptr() for t in (dx, dd, dA, dbc, dD, dh0, part_bc, part_a, part_d)),
+            _DTYPE_CODES[x.dtype], b, s, din, n, part_bc.shape[0], stream)
     if err:
-        raise RuntimeError(f"mamba_scan: kernel launch failed with cudaError {err}")
-    global launches
-    launches += 1
-    return y, hT
+        raise RuntimeError(f"mamba_scan_backward: kernel launch failed with cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return dx, dd, dA, dbc[0], dbc[1], dD, dh0
+
+
+class MambaScan(torch.autograd.Function):
+    """Differentiable selective scan, called as ``MambaScan.apply(x, delta,
+    A, Bm, Cm, D, h0, use_kernels)`` -> (y, hT).  `use_kernels` picks the
+    CUDA kernels (forward with checkpoints, and the reverse scan) or the
+    plain versions of both (``ref.py``), which are the same formulas."""
+
+    @staticmethod
+    def forward(ctx, x, delta, A, Bm, Cm, D, h0, use_kernels):
+        ctx.set_materialize_grads(False)
+        if use_kernels:
+            y, hT, ckpt = mamba_scan(x, delta, A, Bm, Cm, D, h0, checkpoints=True)
+        else:
+            (y, hT), ckpt = mamba_scan_reference(x, delta, A, Bm, Cm, D, h0), None
+        ctx.save_for_backward(x, delta, A, Bm, Cm, D, h0, ckpt)
+        ctx.use_kernels = use_kernels
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, delta, A, Bm, Cm, D, h0, ckpt = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dhT = None if dhT is None else dhT.contiguous()
+        if ctx.use_kernels:
+            grads = mamba_scan_backward(x, delta, A, Bm, Cm, D, h0, dy, dhT, ckpt)
+        else:
+            grads = mamba_scan_backward_reference(x, delta, A, Bm, Cm, D, h0, dy, dhT,
+                                                  chunk=CHUNK)
+        dh0 = grads[-1] if h0 is not None else None
+        return (*grads[:-1], dh0, None)
+

@@ -32,13 +32,17 @@ def _resolve(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
                     q_offset=0, impl="auto", block_k=512):
     """Tensors that need a gradient go through the differentiable
     ``FlashAttention``: the forward and backward kernels for "cuda", their
     plain versions for "torch"."""
     resolved = _resolve(impl, q)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if _needs_grad(q, k, v):
         return _flash.flash_attention_trainable(
             q, k, v, causal=causal, window=window, sm_scale=sm_scale, q_offset=q_offset,
             block_k=block_k, use_kernels=resolved == "cuda")
@@ -57,19 +61,33 @@ def decode_attention(q, k, v, *, length=None, sm_scale=None, impl="auto"):
 
 
 def rglru_scan(x, r, i, log_a, h0=None, *, c=8.0, impl="auto", scan_dtype=None):
-    """``scan_dtype`` (bf16 rounding of the recurrence) reaches only the plain
+    """Tensors that need a gradient go through the differentiable
+    ``RGLRUScan``: the forward and reverse-scan kernels for "cuda", their
+    plain versions for "torch".
+
+    ``scan_dtype`` (bf16 rounding of the recurrence) reaches only the plain
     version, as the JAX package passes it only to its XLA reference; the
-    CUDA kernel, like the Pallas kernel, keeps the carry in fp32."""
-    if _resolve(impl, x) == "torch":
+    CUDA kernels, like the Pallas kernel, keep the carry in fp32.  Under a
+    gradient with ``scan_dtype`` set, the plain route is torch's autograd of
+    the plain forward, whose roundings the plain backward does not repeat."""
+    resolved = _resolve(impl, x)
+    if _needs_grad(x, r, i, log_a, h0) and not (resolved == "torch" and scan_dtype is not None):
+        return _rglru.RGLRUScan.apply(x, r, i, log_a, h0, c, resolved == "cuda")
+    if resolved == "torch":
         return ref.rglru_reference(x, r, i, log_a, h0, c=c, scan_dtype=scan_dtype)
-    return _rglru.rglru_scan(x, r, i, log_a, h0, c=c)
+    return _rglru.rglru_scan(x, r, i, log_a, h0, c=c)[:2]
 
 
 def mamba_scan(x, delta, A, B, C, D, h0=None, *, impl="auto", scan_dtype=None):
-    """``scan_dtype`` reaches only the plain version (see ``rglru_scan``)."""
-    if _resolve(impl, x) == "torch":
+    """Tensors that need a gradient go through the differentiable
+    ``MambaScan`` (see ``rglru_scan``, also for ``scan_dtype``)."""
+    resolved = _resolve(impl, x)
+    if (_needs_grad(x, delta, A, B, C, D, h0)
+            and not (resolved == "torch" and scan_dtype is not None)):
+        return _mamba.MambaScan.apply(x, delta, A, B, C, D, h0, resolved == "cuda")
+    if resolved == "torch":
         return ref.mamba_scan_reference(x, delta, A, B, C, D, h0, scan_dtype=scan_dtype)
-    return _mamba.mamba_scan(x, delta, A, B, C, D, h0)
+    return _mamba.mamba_scan(x, delta, A, B, C, D, h0)[:2]
 
 
 def topk_compress(x, k, *, block=1024, impl="auto"):

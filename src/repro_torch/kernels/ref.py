@@ -195,6 +195,11 @@ def decode_attention_reference(
 
 
 # ============================================================== linear scans
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The scans' arithmetic type: fp32, or fp64 for fp64 inputs (gradcheck)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def linear_scan_reference(
     a: torch.Tensor,  # [B, S, ...] decay
     b: torch.Tensor,  # [B, S, ...] input term
@@ -228,20 +233,92 @@ def mamba_scan_reference(
     never holds a [B, S, Din, N] tensor.  `scan_dtype` rounds a, b and the
     carry to that type, as the JAX oracle does."""
     b_, s, din = x.shape
-    xf, dt = x.float(), delta.float()
+    ct = _acc(x)
+    xf, dt = x.to(ct), delta.to(ct)
     dx = dt * xf
-    Af, Bf, Cf = A.float(), Bm.float(), Cm.float()
-    sd = scan_dtype or torch.float32
+    Af, Bf, Cf = A.to(ct), Bm.to(ct), Cm.to(ct)
+    sd = scan_dtype or ct
     h = (torch.zeros((b_, din, A.shape[1]), dtype=sd, device=x.device) if h0 is None
          else h0.to(sd))
-    ys = torch.empty((b_, s, din), dtype=torch.float32, device=x.device)
+    ys = torch.empty((b_, s, din), dtype=ct, device=x.device)
     for t in range(s):
         a = torch.exp(dt[:, t, :, None] * Af[None])
         b = dx[:, t, :, None] * Bf[:, t, None, :]
         h = a.to(sd) * h + b.to(sd)
-        ys[:, t] = torch.einsum("bdn,bn->bd", h.float(), Cf[:, t])
-    y = ys + xf * D.float()[None, None]
-    return y.to(x.dtype), h.float()
+        ys[:, t] = torch.einsum("bdn,bn->bd", h.to(ct), Cf[:, t])
+    y = ys + xf * D.to(ct)[None, None]
+    return y.to(x.dtype), h.to(ct)
+
+
+def mamba_scan_backward_reference(
+    x: torch.Tensor,      # [B, S, Din]
+    delta: torch.Tensor,  # [B, S, Din]
+    A: torch.Tensor,      # [Din, N]
+    Bm: torch.Tensor,     # [B, S, N]
+    Cm: torch.Tensor,     # [B, S, N]
+    D: torch.Tensor,      # [Din]
+    h0: Optional[torch.Tensor],   # [B, Din, N]
+    dy: torch.Tensor,     # [B, S, Din] gradient of y
+    dhT: Optional[torch.Tensor] = None,  # [B, Din, N] gradient of h_final
+    *,
+    chunk: int = 32,
+) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddelta, dA, dBm, dCm, dD, dh0) of ``mamba_scan_reference``, each
+    in its input's dtype (dh0 fp32), by the reverse scan the backward kernel
+    runs, in fp32.  With a_t = exp(delta_t A) and g_t the gradient of h_t:
+
+        g_t   = C_t dy_t + a_{t+1} g_{t+1}     (g_{S-1} also takes dhT)
+        dx_t  = delta_t sum_n g_t B_t + D dy_t
+        ddelta_t = sum_n g_t (x_t B_t + A a_t h_{t-1})
+        dA    = sum_{b,t} g_t delta_t a_t h_{t-1}
+        dBm_t = sum_d g_t delta_t x_t,   dCm_t = sum_d dy_t h_t
+        dD    = sum_{b,t} dy_t x_t,      dh0 = a_0 g_0
+
+    h_{t-1} is recomputed forward from the state entering each chunk of
+    `chunk` steps (the forward kernel's checkpoints); nothing divides by a
+    decay, which underflows to 0 over long spans.
+    """
+    b_, s, din = x.shape
+    ct = _acc(x)
+    xf, dt, Af, Bf, Cf, gy = (t.to(ct) for t in (x, delta, A, Bm, Cm, dy))
+    dtx = dt * xf
+
+    def step(h, t):
+        return torch.exp(dt[:, t, :, None] * Af) * h + dtx[:, t, :, None] * Bf[:, t, None, :]
+
+    h = (torch.zeros((b_, din, A.shape[1]), dtype=ct, device=x.device) if h0 is None
+         else h0.to(ct))
+    ckpts = []
+    for t in range(s):
+        if t % chunk == 0:
+            ckpts.append(h)
+        h = step(h, t)
+    ga = torch.zeros_like(h) if dhT is None else dhT.to(ct)   # a_{t+1} g_{t+1}
+    gx = torch.empty((b_, s, din), dtype=ct, device=x.device)
+    gd = torch.empty_like(gx)
+    gB = torch.empty((b_, s, A.shape[1]), dtype=ct, device=x.device)
+    gC = torch.empty_like(gB)
+    gA = torch.zeros_like(Af)
+    for c in reversed(range(len(ckpts))):
+        t0 = c * chunk
+        hs = [ckpts[c]]
+        for t in range(t0, min(t0 + chunk, s)):
+            hs.append(step(hs[-1], t))
+        for t in reversed(range(t0, min(t0 + chunk, s))):
+            a = torch.exp(dt[:, t, :, None] * Af)
+            g = ga + gy[:, t, :, None] * Cf[:, t, None, :]
+            ah = a * hs[t - t0]
+            g_b = torch.einsum("bdn,bn->bd", g, Bf[:, t])
+            gx[:, t] = dt[:, t] * g_b
+            gd[:, t] = xf[:, t] * g_b + (g * ah * Af).sum(-1)
+            gB[:, t] = torch.einsum("bdn,bd->bn", g, dtx[:, t])
+            gC[:, t] = torch.einsum("bdn,bd->bn", hs[t - t0 + 1], gy[:, t])
+            gA += (g * ah * dt[:, t, :, None]).sum(0)
+            ga = a * g
+    gx += gy * D.to(ct)
+    gD = (gy * xf).sum((0, 1))
+    return (gx.to(x.dtype), gd.to(delta.dtype), gA.to(A.dtype), gB.to(Bm.dtype),
+            gC.to(Cm.dtype), gD.to(D.dtype), ga)
 
 
 def rglru_reference(
@@ -261,9 +338,59 @@ def rglru_reference(
     log_at = c * r * log_a[None, None]
     a = torch.exp(log_at)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_at), min=1e-12)) * (i * x)
-    sd = scan_dtype or torch.float32
+    sd = scan_dtype or _acc(x)
     states, hT = linear_scan_reference(a.to(sd), b.to(sd), h0)
-    return states.to(x.dtype), hT.float()
+    return states.to(x.dtype), hT.to(_acc(x))
+
+
+def rglru_backward_reference(
+    x: torch.Tensor,      # [B, S, D]
+    r: torch.Tensor,      # [B, S, D]
+    i: torch.Tensor,      # [B, S, D]
+    log_a: torch.Tensor,  # [D]
+    h0: Optional[torch.Tensor],   # [B, D]
+    dy: torch.Tensor,     # [B, S, D] gradient of the states
+    dhT: Optional[torch.Tensor] = None,  # [B, D] gradient of h_final
+    *,
+    c: float = 8.0,
+) -> Tuple[torch.Tensor, ...]:
+    """(dx, dr, di, dlog_a, dh0) of ``rglru_reference``, each in its input's
+    dtype (dh0 fp32), by the reverse scan the backward kernel runs, in fp32.
+    With l_t = c r_t log_a, a_t = exp(l_t), m_t = sqrt(max(1 - a_t^2, 1e-12))
+    and u_t = i_t x_t (taken in x's dtype, as the forward takes it; its
+    rounding passes the gradient straight through):
+
+        g_t  = dy_t + a_{t+1} g_{t+1}          (g_{S-1} also takes dhT)
+        dx_t = g_t m_t i_t,   di_t = g_t m_t x_t
+        dl_t = g_t a_t h_{t-1} - g_t u_t a_t^2 / m_t where the clamp does not
+               hold, and g_t a_t h_{t-1} where it does (JAX's derivative of
+               the clamp, ``repro/kernels/ref.py:rglru_reference``, is 0 there)
+        dr_t = c log_a dl_t,  dlog_a = sum_{b,t} c r_t dl_t,  dh0 = a_0 g_0
+
+    h_{t-1} comes from the forward recurrence run again from h0: nothing
+    divides by a decay.  g is the same recurrence run backwards."""
+    ct = _acc(x)
+    xf, rf, i_f, la, gy = (t.to(ct) for t in (x, r, i, log_a, dy))
+    b_, s, d = x.shape
+    log_at = c * rf * la
+    a = torch.exp(log_at)
+    a2 = torch.exp(2.0 * log_at)
+    q = 1.0 - a2
+    m = torch.sqrt(torch.clamp(q, min=1e-12))
+    u = (i * x).to(ct)
+    h_init = (torch.zeros((b_, d), dtype=ct, device=x.device) if h0 is None
+              else h0.to(ct))
+    states, _ = linear_scan_reference(a, m * u, h_init)
+    h_prev = torch.cat([h_init[:, None], states[:, :-1]], dim=1)
+    # g backwards: G_k = g_{S-1-k} = a_{S-k} G_{k-1} + dy_{S-1-k}, G_{-1} = dhT
+    a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+    g_rev, _ = linear_scan_reference(a_next.flip(1), gy.flip(1),
+                                     None if dhT is None else dhT.to(ct))
+    g = g_rev.flip(1)
+    du = g * m
+    dl = g * h_prev * a - torch.where(q > 1e-12, g * u * a2 / m, torch.zeros((), device=x.device))
+    return ((du * i_f).to(x.dtype), (dl * (c * la)).to(r.dtype), (du * xf).to(i.dtype),
+            (dl * c * rf).sum((0, 1)).to(log_a.dtype), a[:, 0] * g[:, 0])
 
 
 # ============================================================ delta compression

@@ -13,7 +13,16 @@ one thread per (row, channel) walks the sequence with the carry in a
 register, loading 16 steps ahead of the recurrence; see the note in the
 source for what limits it (PERF.md has its times).
 
-``launches`` counts kernel launches; the plain path never adds to it.
+Training differentiates through ``RGLRUScan``, a ``torch.autograd.Function``
+whose forward also writes the fp32 carry entering every ``CHUNK`` steps and
+whose backward is the hand-written reverse scan ``rglru_scan_backward``
+(``repro_rglru_scan_bwd`` in the same source; the JAX package has no
+backward kernel: it differentiates its XLA reference).  Its plain version is
+``ref.rglru_backward_reference``, the same formulas.
+
+``launches`` counts forward kernel launches, ``bwd_launches`` backward calls
+(one per call: the C entry point issues the reverse scan and the fixed-order
+sum of dlog_a over rows); the plain path never adds to either.
 """
 
 from __future__ import annotations
@@ -24,20 +33,23 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .ref import rglru_reference
+from .ref import rglru_backward_reference, rglru_reference
 
+CHUNK = 16  # steps between the forward's checkpoints: the steps a thread loads at once
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rglru_scan")
-    fn = lib.repro_rglru_scan
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn, types in ((lib.repro_rglru_scan, [p] * 8 + [i] * 4 + [f, p]),
+                      (lib.repro_rglru_scan_bwd, [p] * 13 + [i] * 4 + [f, p])):
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -52,22 +64,12 @@ def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype,
         raise ValueError(f"rglru_scan: {name} must be contiguous")
 
 
-def rglru_scan(
-    x: torch.Tensor,      # [B, S, D]
-    r: torch.Tensor,      # [B, S, D] recurrence gate
-    i: torch.Tensor,      # [B, S, D] input gate
-    log_a: torch.Tensor,  # [D] fp32
-    h0: Optional[torch.Tensor] = None,  # [B, D] fp32
-    *,
-    c: float = 8.0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y [B, S, D] in x's dtype, hT [B, D] fp32).
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel, or
-    raise when the kernel does not take them: nothing falls back.
-    """
-    if x.device.type == "cpu":
-        return rglru_reference(x, r, i, log_a, h0, c=c)
+
+def _check_inputs(x, r, i, log_a, h0):
+    """(B, S, D) of inputs the kernels take; raises on any other."""
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {x.device}")
     if x.dim() != 3 or x.dtype not in _DTYPE_CODES:
@@ -81,18 +83,120 @@ def rglru_scan(
         _check("h0", h0, x.device, torch.float32, (b, d))
     if s == 0:
         raise ValueError("rglru_scan: empty sequence")
+    return b, s, d
+
+
+def rglru_scan(
+    x: torch.Tensor,      # [B, S, D]
+    r: torch.Tensor,      # [B, S, D] recurrence gate
+    i: torch.Tensor,      # [B, S, D] input gate
+    log_a: torch.Tensor,  # [D] fp32
+    h0: Optional[torch.Tensor] = None,  # [B, D] fp32
+    *,
+    c: float = 8.0,
+    checkpoints: bool = False,
+):
+    """(y [B, S, D] in x's dtype, hT [B, D] fp32, ckpt).  With
+    `checkpoints`, ckpt is the fp32 carry entering every CHUNK steps,
+    [B, ceil(S / CHUNK), D]: what ``rglru_scan_backward`` starts from.  It
+    is None without `checkpoints`, and on the CPU, whose plain backward
+    recomputes the states.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel, or
+    raise when the kernel does not take them: nothing falls back.
+    """
+    if x.device.type == "cpu":
+        return (*rglru_reference(x, r, i, log_a, h0, c=c), None)
+    b, s, d = _check_inputs(x, r, i, log_a, h0)
     y = torch.empty_like(x)
     hT = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    ckpt = (torch.empty((b, -(-s // CHUNK), d), dtype=torch.float32, device=x.device)
+            if checkpoints else None)
     if x.numel() == 0:
-        return y, hT
+        return y, hT, ckpt
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().repro_rglru_scan(
-            x.data_ptr(), r.data_ptr(), i.data_ptr(), log_a.data_ptr(),
-            h0.data_ptr() if h0 is not None else None, y.data_ptr(), hT.data_ptr(),
-            _DTYPE_CODES[x.dtype], b, s, d, float(c), stream)
+            x.data_ptr(), r.data_ptr(), i.data_ptr(), log_a.data_ptr(), _ptr(h0),
+            y.data_ptr(), hT.data_ptr(), _ptr(ckpt), _DTYPE_CODES[x.dtype], b, s, d, float(c),
+            stream)
     if err:
         raise RuntimeError(f"rglru_scan: kernel launch failed with cudaError {err}")
     global launches
     launches += 1
-    return y, hT
+    return y, hT, ckpt
+
+
+def rglru_scan_backward(
+    x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, log_a: torch.Tensor,
+    h0: Optional[torch.Tensor],
+    dy: torch.Tensor,                     # [B, S, D] in x's dtype
+    dhT: Optional[torch.Tensor] = None,   # [B, D] fp32
+    ckpt: Optional[torch.Tensor] = None,  # the forward's checkpoints
+    *,
+    c: float = 8.0,
+) -> Tuple[torch.Tensor, ...]:
+    """(dx, dr, di, dlog_a, dh0), each in its input's dtype (dh0 fp32), from
+    the forward's inputs and its checkpoints.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel, or
+    raise when the kernel does not take them: nothing falls back.  Two calls
+    give the same bits: dlog_a's sum over rows is per-row partials summed in
+    a fixed order, with no atomics.
+    """
+    if x.device.type == "cpu":
+        return rglru_backward_reference(x, r, i, log_a, h0, dy, dhT, c=c)
+    b, s, d = _check_inputs(x, r, i, log_a, h0)
+    _check("dy", dy, x.device, x.dtype, (b, s, d))
+    if dhT is not None:
+        _check("dhT", dhT, x.device, torch.float32, (b, d))
+    if ckpt is None:
+        raise ValueError("rglru_scan_backward: a CUDA backward needs the forward's checkpoints")
+    _check("ckpt", ckpt, x.device, torch.float32, (b, -(-s // CHUNK), d))
+    dx, dr, di = torch.empty_like(x), torch.empty_like(r), torch.empty_like(i)
+    dla = torch.empty_like(log_a)
+    dh0, part = (torch.empty((b, d), dtype=torch.float32, device=x.device) for _ in range(2))
+    if x.numel() == 0:
+        return dx, dr, di, dla, dh0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().repro_rglru_scan_bwd(
+            *(t.data_ptr() for t in (x, r, i, log_a, dy)), _ptr(dhT), ckpt.data_ptr(),
+            *(t.data_ptr() for t in (dx, dr, di, dla, dh0, part)), _DTYPE_CODES[x.dtype], b, s,
+            d, float(c), stream)
+    if err:
+        raise RuntimeError(f"rglru_scan_backward: kernel launch failed with cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return dx, dr, di, dla, dh0
+
+
+class RGLRUScan(torch.autograd.Function):
+    """Differentiable RG-LRU scan, called as ``RGLRUScan.apply(x, r, i,
+    log_a, h0, c, use_kernels)`` -> (y, hT).  `use_kernels` picks the CUDA
+    kernels (forward with checkpoints, and the reverse scan) or the plain
+    versions of both (``ref.py``), which are the same formulas."""
+
+    @staticmethod
+    def forward(ctx, x, r, i, log_a, h0, c, use_kernels):
+        ctx.set_materialize_grads(False)
+        if use_kernels:
+            y, hT, ckpt = rglru_scan(x, r, i, log_a, h0, c=c, checkpoints=True)
+        else:
+            (y, hT), ckpt = rglru_reference(x, r, i, log_a, h0, c=c), None
+        ctx.save_for_backward(x, r, i, log_a, h0, ckpt)
+        ctx.c, ctx.use_kernels = c, use_kernels
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, r, i, log_a, h0, ckpt = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dhT = None if dhT is None else dhT.contiguous()
+        if ctx.use_kernels:
+            grads = rglru_scan_backward(x, r, i, log_a, h0, dy, dhT, ckpt, c=ctx.c)
+        else:
+            grads = rglru_backward_reference(x, r, i, log_a, h0, dy, dhT, c=ctx.c)
+        dh0 = grads[-1] if h0 is not None else None
+        return (*grads[:-1], dh0, None, None)
+

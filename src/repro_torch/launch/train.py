@@ -43,6 +43,9 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--grad-topk", type=float, default=0.0)
     ap.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw")
+    ap.add_argument("--momentum-dtype", choices=["float32", "bfloat16"], default="float32",
+                    help="Adafactor's momentum (bfloat16: the JAX package's choice for "
+                         "large models)")
     ap.add_argument("--full", action="store_true", help="published config")
     ap.add_argument("--store", default=None, help="persistence blade directory")
     ap.add_argument("--mirror", default=None)
@@ -61,7 +64,8 @@ def main(argv=None) -> Dict[str, Any]:
     dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=args.global_batch,
                       seq_len=args.seq_len,
                       embed_dim=0 if cfg.embed_inputs else cfg.d_model)
-    tcfg = TrainConfig(opt=OptConfig(kind=args.optimizer, lr=args.lr),
+    tcfg = TrainConfig(opt=OptConfig(kind=args.optimizer, lr=args.lr,
+                                     momentum_dtype=args.momentum_dtype),
                        accum_steps=args.accum, grad_topk_frac=args.grad_topk)
 
     ckpt = None

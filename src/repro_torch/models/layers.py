@@ -250,7 +250,9 @@ def rglru_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """RG-LRU block with residual.  prefill fills `cache` ({"h": [B, dr]
     fp32, "conv": [B, 3, dr]}) in place; decode reads and updates it in
-    place with the closed-form single step."""
+    place with the closed-form single step.  In train mode the scan is
+    differentiable: ``ops.rglru_scan`` takes the forward and reverse-scan
+    kernels on the card, their plain versions on the CPU."""
     B, S, _ = x.shape
     nb = p["w_r"].shape[0]
     dr = p["w_x"].shape[1]
@@ -326,7 +328,9 @@ def mamba_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Mamba-1 block with residual.  prefill fills `cache` ({"h": [B, di, N]
     fp32, "conv": [B, K-1, di]}) in place; decode reads and updates it in
-    place with the closed-form single step."""
+    place with the closed-form single step.  In train mode the scan is
+    differentiable: ``ops.mamba_scan`` takes the forward and reverse-scan
+    kernels on the card, their plain versions on the CPU."""
     N = cfg.ssm.d_state
     di = p["w_in"].shape[1] // 2
     dtr = p["w_dt"].shape[0]

@@ -8,10 +8,13 @@ operation, in fp32.
 
 Unlike the JAX package, which returns new arrays (and donates the old
 ones), ``apply_opt`` updates the parameters and the optimizer state in
-place, one tensor at a time: the fp32 temporaries of one tensor are alive
-at once, never a second copy of the state.  Each in-place step is the same
-elementwise operation as JAX's, so the values are those of the functional
-form.
+place, one tensor at a time, and a tensor of rank >= 3 (a stacked model's
+layers) in chunks of whole slices of its first axis, at most PIECE elements
+a chunk: the fp32 temporaries of one chunk are alive at once, never a
+second copy of the state (a whole stack's would be 16 GiB each for
+falcon-mamba-7b's w_in).  Each in-place step is the same elementwise
+operation as JAX's, and Adafactor's means run over the last two axes, inside
+a chunk, so the values are those of the functional form.
 """
 
 from __future__ import annotations
@@ -64,9 +67,21 @@ def _is_moments(x: Any) -> bool:
     return isinstance(x, dict) and "m" in x and set(x) <= {"m", "v", "vr", "vc"}
 
 
+PIECE = 1 << 28  # elements the optimizer takes at once: 1 GiB a fp32 temporary
+
+
+def _split(t: torch.Tensor, like: torch.Tensor) -> List[torch.Tensor]:
+    """`t` (a parameter, its gradient or one of its moments) as views of
+    whole slices of the first axis of its parameter `like`, at most PIECE
+    elements of `like` a view, when `like` has rank >= 3; else [t]."""
+    if like.dim() < 3 or like.shape[0] == 0:
+        return [t]
+    return list(t.split(max(1, PIECE // max(1, like[0].numel()))))
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over tensors of the sum of squares, in fp32."""
-    sq = sum(torch.sum(torch.square(g.float())) for g in tensors)
+    """sqrt of the sum over tensors (by piece) of the sum of squares, in fp32."""
+    sq = sum(torch.sum(torch.square(x.float())) for g in tensors for x in _split(g, g))
     return torch.sqrt(sq)
 
 
@@ -122,10 +137,12 @@ def apply_opt(params: Tree, grads: List[torch.Tensor], state: Tree, cfg: OptConf
     with torch.no_grad():
         for i, (p, s) in enumerate(zip(flat_p, flat_s)):
             g, grads[i] = grads[i], None  # let each gradient go once it is applied
-            if cfg.kind == "adamw":
-                _adamw(p, g, s, cfg, scale, bc1, bc2)
-            else:
-                _adafactor(p, g, s, cfg, scale)
+            states = [dict(zip(s, vs)) for vs in zip(*(_split(v, p) for v in s.values()))]
+            for pl, gl, sl in zip(_split(p, p), _split(g, p), states):
+                if cfg.kind == "adamw":
+                    _adamw(pl, gl, sl, cfg, scale, bc1, bc2)
+                else:
+                    _adafactor(pl, gl, sl, cfg, scale)
             del g
     grads.clear()
     return gnorm

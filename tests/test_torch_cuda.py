@@ -35,7 +35,7 @@ from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade, flet
 from repro_torch.training import (OptConfig, TrainConfig, Trainer, TrainerConfig,
                                   init_train_state, make_train_step)
 from repro_torch.training.trainer import deterministic_cuda
-from repro_torch.tree import flatten_named
+from repro_torch.tree import flatten_named, tree_map_named
 
 pytestmark = pytest.mark.cuda
 
@@ -147,6 +147,26 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         rs.rglru_scan(x, x.transpose(1, 2).contiguous().transpose(1, 2), x, d)
     with pytest.raises(ValueError, match="log_a"):
         rs.rglru_scan(x, x, x, d.bfloat16())
+    # a CUDA backward starts from the forward's checkpoints, or raises
+    with pytest.raises(ValueError, match="checkpoints"):
+        ms.mamba_scan_backward(x, x, a, bc, bc, d, None, x)
+    with pytest.raises(ValueError, match="checkpoints"):
+        rs.rglru_scan_backward(x, x, x, d, None, x)
+    with pytest.raises(ValueError, match="ckpt"):
+        rs.rglru_scan_backward(x, x, x, d, None, x, ckpt=torch.zeros(1, 8, 32, device=cuda))
+
+
+def test_mamba_backward_refuses_scratch_sized_for_another_block(cuda, monkeypatch):
+    """The partial sums of dBm and dCm are sized by ``CHANNELS``; a count
+    other than the kernel's blocks is refused before anything launches."""
+    x = torch.zeros(1, 8, 128, device=cuda)
+    a, bc, d = (torch.zeros(*s, device=cuda) for s in ((128, 8), (1, 8, 8), (128,)))
+    ckpt = ms.mamba_scan(x, x, a, bc, bc, d, checkpoints=True)[2]
+    k = ms.bwd_launches
+    monkeypatch.setattr(ms, "CHANNELS", ms.CHANNELS // 2)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        ms.mamba_scan_backward(x, x, a, bc, bc, d, None, x, None, ckpt)
+    assert ms.bwd_launches == k
 
 
 @pytest.mark.parametrize("b,s,d", [(2, 777, 512), (1, 64, 128), (4, 1000, 4096), (3, 5, 70)])
@@ -160,8 +180,9 @@ def test_rglru_kernel_matches_plain(cuda, b, s, d, dtype, with_h0):
     log_a = -torch.exp(_randn(gen, (d,), torch.float32) * 0.3) * 0.1
     h0 = _randn(gen, (b, d), torch.float32) if with_h0 else None
     n = rs.launches
-    y, hT = rs.rglru_scan(x, r, i, log_a, h0)
+    y, hT, ckpt = rs.rglru_scan(x, r, i, log_a, h0)
     assert rs.launches == n + 1 and y.dtype == dtype and hT.dtype == torch.float32
+    assert ckpt is None
     wy, wh = ref.rglru_reference(x, r, i, log_a, h0)
     torch.testing.assert_close(y.float(), wy.float(), **SCAN_TOL[dtype])
     torch.testing.assert_close(hT, wh, **SCAN_TOL[dtype])
@@ -184,11 +205,133 @@ def test_mamba_kernel_matches_plain(cuda, b, s, din, n, dtype, with_h0):
     D = _randn(gen, (din,), torch.float32)
     h0 = _randn(gen, (b, din, n), torch.float32) if with_h0 else None
     k = ms.launches
-    y, hT = ms.mamba_scan(x, delta, A, Bm, Cm, D, h0)
+    y, hT, ckpt = ms.mamba_scan(x, delta, A, Bm, Cm, D, h0)
     assert ms.launches == k + 1 and y.dtype == dtype and hT.dtype == torch.float32
+    assert ckpt is None
     wy, wh = ref.mamba_scan_reference(x, delta, A, Bm, Cm, D, h0)
     torch.testing.assert_close(y.float(), wy.float(), **SCAN_TOL[dtype])
     torch.testing.assert_close(hT, wh, **SCAN_TOL[dtype])
+
+
+def _grads_close(got, want, atol, rtol):
+    """Each gradient within atol of its largest entry plus rtol of itself."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = w.float().abs().max()
+        assert bool(((g.float() - w.float()).abs() <= atol * scale + rtol * w.float().abs()).all())
+
+
+# S off the 32-step tile and the 16-step half (1000, 33, 7); Din off the
+# 64-channel block (200, 100); falcon-mamba-7b's Din 8192 at S 1024
+@pytest.mark.parametrize("b,s,din,n", [(2, 512, 256, 16), (1, 200, 128, 8), (2, 1000, 1024, 16),
+                                       (1, 33, 200, 8), (4, 1024, 8192, 16), (2, 7, 100, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_mamba_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, s, din, n, dtype,
+                                                                 with_h0):
+    gen = torch.Generator(device=cuda).manual_seed(s + din + n + 1)
+    x = _randn(gen, (b, s, din), dtype)
+    delta = torch.nn.functional.softplus(_randn(gen, (b, s, din), torch.float32))
+    A = -torch.exp(_randn(gen, (din, n), torch.float32) * 0.5)
+    Bm, Cm = _randn(gen, (b, s, n), dtype), _randn(gen, (b, s, n), dtype)
+    D = _randn(gen, (din,), torch.float32)
+    h0 = _randn(gen, (b, din, n), torch.float32) if with_h0 else None
+    dy = _randn(gen, (b, s, din), dtype)
+    dhT = _randn(gen, (b, din, n), torch.float32) if with_h0 else None
+    args = (x, delta, A, Bm, Cm, D, h0)
+    y, hT, ckpt = ms.mamba_scan(*args, checkpoints=True)
+    torch.testing.assert_close(y, ms.mamba_scan(*args)[0], atol=0, rtol=0)
+    k = ms.bwd_launches
+    got = ms.mamba_scan_backward(*args, dy, dhT, ckpt)
+    again = ms.mamba_scan_backward(*args, dy, dhT, ckpt)
+    assert ms.bwd_launches == k + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = ref.mamba_scan_backward_reference(*args, dy, dhT, chunk=ms.CHUNK)
+    _grads_close(got, want, **SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 777, 512), (1, 64, 128), (4, 3072, 4096), (3, 5, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, s, d, dtype, with_h0):
+    gen = torch.Generator(device=cuda).manual_seed(s + d + 1)
+    x = _randn(gen, (b, s, d), dtype)
+    r = torch.sigmoid(_randn(gen, (b, s, d), torch.float32)).to(dtype)
+    i = torch.sigmoid(_randn(gen, (b, s, d), torch.float32)).to(dtype)
+    log_a = -torch.exp(_randn(gen, (d,), torch.float32) * 0.3) * 0.1
+    h0 = _randn(gen, (b, d), torch.float32) if with_h0 else None
+    dy = _randn(gen, (b, s, d), dtype)
+    dhT = _randn(gen, (b, d), torch.float32) if with_h0 else None
+    y, hT, ckpt = rs.rglru_scan(x, r, i, log_a, h0, checkpoints=True)
+    torch.testing.assert_close(y, rs.rglru_scan(x, r, i, log_a, h0)[0], atol=0, rtol=0)
+    k = rs.bwd_launches
+    got = rs.rglru_scan_backward(x, r, i, log_a, h0, dy, dhT, ckpt)
+    again = rs.rglru_scan_backward(x, r, i, log_a, h0, dy, dhT, ckpt)
+    assert rs.bwd_launches == k + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = ref.rglru_backward_reference(x, r, i, log_a, h0, dy, dhT)
+    _grads_close(got, want, **SCAN_TOL[dtype])
+
+
+def test_scans_under_grad_run_both_kernels(cuda):
+    """ops routes CUDA tensors that need a gradient through the autograd
+    Functions: one forward and one backward launch each, and the same
+    gradients as the plain route."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, dt = _randn(gen, (2, 70, 128), torch.float32), _randn(gen, (2, 70, 128), torch.float32)
+    A = -torch.exp(_randn(gen, (128, 16), torch.float32) * 0.5)
+    bc = [_randn(gen, (2, 70, 16), torch.float32) for _ in range(2)]
+    D = _randn(gen, (128,), torch.float32)
+    m_in = [x, torch.nn.functional.softplus(dt), A, *bc, D]
+    r_in = [x, torch.sigmoid(dt), torch.sigmoid(x * 0.5), -torch.exp(D * 0.3) * 0.1]
+    for fn, inputs, mod in ((ops.mamba_scan, m_in, ms), (ops.rglru_scan, r_in, rs)):
+        grads = {}
+        for impl in ("cuda", "torch"):
+            leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+            before = (mod.launches, mod.bwd_launches)
+            y, _ = fn(*leaves, impl=impl)
+            y.square().sum().backward()
+            n = int(impl == "cuda")
+            assert (mod.launches - before[0], mod.bwd_launches - before[1]) == (n, n)
+            grads[impl] = [t.grad for t in leaves]
+        _grads_close(grads["cuda"], grads["torch"], **SCAN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("arch,counts", [("falcon-mamba-7b", {"mamba": 2}),
+                                         ("recurrentgemma-9b", {"rglru": 4, "flash": 2})])
+def test_recurrent_train_step_gradients_match_plain_path(cuda, arch, counts):
+    """Every parameter's gradient of a smoke train step, kernel path against
+    plain path, in fp32 (within 2e-3 of each gradient's largest entry, the
+    bound of chip_smoke.py's train_parity), and every one nonzero: a CUDA
+    scan that passed no gradient would leave everything upstream of it at
+    zero."""
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = DecoderLM(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=2, seq_len=80)).batch_at(0).items()}
+    mods = {"mamba": ms, "rglru": rs, "flash": fa}
+    fwd_bwd = {"mamba": (ms, "bwd_launches"), "rglru": (rs, "bwd_launches"),
+               "flash": (fb, "launches")}
+
+    def loss_and_grads(impl):
+        model = DecoderLM(dataclasses.replace(cfg, attn_impl=impl))
+        leaves = {n: p.detach().requires_grad_(True) for n, p in flatten_named(params)}
+        loss = model.loss(tree_map_named(lambda n, _: leaves[n], params), batch)
+        return float(loss), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    before = {k: (m.launches, getattr(*fwd_bwd[k])) for k, m in mods.items()}
+    loss_k, grads_k = loss_and_grads("cuda")
+    launched = {k: (m.launches - before[k][0], getattr(*fwd_bwd[k]) - before[k][1])
+                for k, m in mods.items()}
+    assert launched == {k: (counts.get(k, 0),) * 2 for k in mods}
+    loss_p, grads_p = loss_and_grads("torch")
+    assert abs(loss_k - loss_p) <= 1e-4
+    for name, g in grads_p.items():
+        assert bool(torch.isfinite(grads_k[name]).all()) and grads_k[name].abs().max() > 0, name
+        scale = g.abs().max()
+        assert float((grads_k[name] - g).abs().max()) <= 2e-3 * float(scale), name
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b"])
@@ -252,6 +395,8 @@ def test_recurrent_model_kernel_path_matches_plain_path(cuda, arch, prompt, coun
     (1, 2, 2, 70, 70, 32),        # MHA, head_dim 32
     (2, 16, 1, 90, 90, 64),       # group of 16
     (1, 3, 1, 257, 300, 128),     # ragged past both routes' tiles, Sk > Sq
+    (1, 16, 1, 300, 300, 256),    # recurrentgemma-9b's MQA at D=256, ragged
+    (2, 16, 1, 130, 200, 256),    # D=256, Sk > Sq
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 17), (True, 128)])

@@ -48,10 +48,10 @@ def test_route_of_every_config_head_dim(arch):
             for dtype in (torch.bfloat16, torch.float32):
                 with pytest.raises(ValueError, match="head_dim"):
                     mod._route(dtype, d)
-    # the forward takes every attention head dim but the two left to a later
-    # port (112: kimi-k2; 160: stablelm-12b); the backward not 256 either
+    # forward and backward take every attention head dim but the two left to
+    # a later port (112: kimi-k2; 160: stablelm-12b)
     assert (d in fa.HEAD_DIMS) == (d not in (0, 112, 160))
-    assert (d in fb.HEAD_DIMS) == (d not in (0, 112, 160, 256))
+    assert (d in fb.HEAD_DIMS) == (d not in (0, 112, 160))
 
 
 def test_build_sources_cover_every_cuda_file():
@@ -160,12 +160,14 @@ def test_forward_rounding_points_hold_against_jax(b, hq, hkv, sq, sk, d, causal,
     _close(out, JR.mha_reference(jq, jk, jv, **kw))
 
 
-# the backward shapes of tests/test_torch_cuda.py
+# the backward shapes of tests/test_torch_cuda.py, and recurrentgemma-9b's
+# D=256 MQA (16/1 heads), which the wgmma route splits between warpgroups
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
     (2, 4, 2, 130, 130, 64),
     (1, 8, 1, 50, 200, 128),
     (1, 6, 2, 100, 100, 128),
     (1, 2, 2, 70, 70, 32),
+    (1, 16, 1, 90, 90, 256),
 ])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 17)])
 def test_backward_rounding_points_hold_against_jax_vjp(b, hq, hkv, sq, sk, d, causal, window):

@@ -61,10 +61,10 @@ def _np(x):
     return x.detach().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
-def _grad_close(got, want):
+def _grad_close(got, want, tol=1e-3):
     got, want = _np(got), _np(want)
     assert got.shape == want.shape
-    assert np.abs(got - want).max() <= 1e-7 + 1e-3 * np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-7 + tol * np.abs(want).max()
 
 
 # ------------------------------------------------------------------ pipeline
@@ -141,20 +141,60 @@ def _batch(cfg_vocab, b=2, s=16, seed=0):
             "labels": rng.integers(0, cfg_vocab, (b, s)).astype(np.int32)}
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b"])
-def test_loss_and_gradients_match_jax(arch):
+# recurrentgemma-9b's gradients at the JAX init: within 3e-3 of each one's
+# scale (measured up to 2.75e-3, at its local-attention layer's FFN).  Its one
+# KV head gets fan-in 1 under the JAX rule (wk of std 1), so its attention
+# logits are large and the softmax near one-hot, and fp32 summation order is
+# amplified as for llama's (tests/test_torch_models.py's LOGITS_CLOSE holds
+# its logits to scale for the same reason).  The FFN after that attention has
+# a small gradient (~5e-3 against ~5 in the RG-LRU layers), so the same
+# absolute noise is a larger share of it.  With wq and wk at the standard
+# fan-in every gradient is within 5e-6: the test below.
+GRAD_TOL = {"recurrentgemma-9b": 3e-3}
+
+
+def _loss_and_grads_both(arch, standard_fan_in=False):
+    """(torch loss, JAX loss, torch grads, JAX grads) from the same weights
+    and batch; with `standard_fan_in`, wq and wk scaled in both from the JAX
+    rule's fan-in (shape[-2]) to d_model."""
     jm, jp, model, params = _models(arch)
+    if standard_fan_in:
+        named = {n: np.asarray(a) for n, a in j_flatten_named(jp)}
+        for n, a in named.items():
+            if n.endswith(("/wq", "/wk")):
+                named[n] = (a * np.sqrt(a.shape[-2] / a.shape[-3])).astype(np.float32)
+        jp = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(jp),
+                                          [jnp.asarray(named[n]) for n, _ in j_flatten_named(jp)])
+        params = params_from_numpy(named, model, "cpu")
     batch = _batch(model.cfg.vocab_size)
     jloss, jgrads = jax.value_and_grad(jm.loss)(jp, {k: jnp.asarray(v) for k, v in batch.items()})
     leaves = {n: p.clone().requires_grad_(True) for n, p in flatten_named(params)}
     loss = model.loss(tree_map_named(lambda n, _: leaves[n], params),
                       {k: torch.from_numpy(v) for k, v in batch.items()})
     loss.backward()
-    assert abs(float(loss.detach()) - float(jloss)) <= 1e-5
-    want = dict(j_flatten_named(jgrads))
-    assert sorted(want) == sorted(leaves)
-    for name, leaf in leaves.items():
-        _grad_close(leaf.grad, want[name])
+    return (float(loss.detach()), float(jloss), {n: t.grad for n, t in leaves.items()},
+            dict(j_flatten_named(jgrads)))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b", "falcon-mamba-7b",
+                                  "recurrentgemma-9b"])
+def test_loss_and_gradients_match_jax(arch):
+    """The recurrent archs differentiate their scans through the autograd
+    Functions' plain route (the reverse-scan references)."""
+    loss, jloss, grads, want = _loss_and_grads_both(arch)
+    assert abs(loss - jloss) <= 1e-5
+    assert sorted(want) == sorted(grads)
+    for name, g in grads.items():
+        _grad_close(g, want[name], GRAD_TOL.get(arch, 1e-3))
+
+
+def test_recurrentgemma_gradients_match_jax_at_standard_fan_in():
+    """The dense archs' bound holds for recurrentgemma-9b once its attention
+    logits are of order one: its GRAD_TOL is the JAX init's, not the port's."""
+    loss, jloss, grads, want = _loss_and_grads_both("recurrentgemma-9b", standard_fan_in=True)
+    assert abs(loss - jloss) <= 1e-5
+    for name, g in grads.items():
+        _grad_close(g, want[name])
 
 
 def _sparse_close(got, want):
@@ -231,6 +271,38 @@ def test_apply_opt_matches_jax_on_the_same_gradients(kind, momentum):
             scale = np.abs(_np(w)).max()
             ulp = 2 ** -7 if t.dtype == torch.bfloat16 else 2e-6
             assert np.abs(_np(t) - _np(w)).max() <= ulp * scale + 1e-12, (step, name)
+
+
+@pytest.mark.parametrize("kind,momentum", [("adamw", "float32"), ("adafactor", "bfloat16")])
+def test_apply_opt_takes_stacked_tensors_in_pieces(monkeypatch, kind, momentum):
+    """A tensor of rank >= 3 is updated in pieces of whole first-axis slices
+    (at most PIECE elements): the same parameters, moments and norm as in
+    one piece, within fp32 rounding of the norm's order of summation."""
+    from repro_torch.training import optimizer
+
+    rng = np.random.default_rng(3)
+    shapes = {"stack": (5, 4, 3), "deep": (3, 2, 2, 3), "w": (6, 5), "b": (7,)}
+    cfg = OptConfig(kind=kind, momentum_dtype=momentum)
+    runs = []
+    for piece in (1 << 28, 24):  # one piece; then 2 slices of "stack", 2 of "deep"
+        monkeypatch.setattr(optimizer, "PIECE", piece)
+        params = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for n, s in shapes.items()}
+        rng = np.random.default_rng(3)
+        state, norms = init_opt_state(params, cfg), []
+        grng = np.random.default_rng(4)
+        for step in range(2):
+            grads = [torch.from_numpy(grng.standard_normal(p.shape).astype(np.float32))
+                     for _, p in flatten_named(params)]
+            norms.append(float(apply_opt(params, grads, state, cfg,
+                                         torch.tensor(step, dtype=torch.int32))))
+        runs.append((dict(flatten_named(params)), dict(flatten_named(state)), norms))
+    (p1, s1, n1), (p2, s2, n2) = runs
+    np.testing.assert_allclose(n1, n2, rtol=1e-6)
+    for name in p1:
+        torch.testing.assert_close(p1[name], p2[name], atol=1e-6, rtol=1e-6)
+    for name in s1:
+        torch.testing.assert_close(s1[name].float(), s2[name].float(), atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("opt,extra", [
