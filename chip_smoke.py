@@ -7,6 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --only kernel    # build + the kernel cases only
     python3 chip_smoke.py --only kernel,train
     python3 chip_smoke.py --only kernel,train_recurrent
+    python3 chip_smoke.py --only kernel,serve
+    python3 chip_smoke.py --only kernel,train_stablelm,train_parity
 
 It prints one JSON object per line, one line per phase:
 
@@ -33,7 +35,10 @@ It prints one JSON object per line, one line per phase:
            The backward cases (flash at llama's and recurrentgemma-9b's
            shapes, the two scans' reverse scans with h0 and dhT) hold every
            gradient within their tolerance of its largest entry and two
-           runs bitwise equal
+           runs bitwise equal.  Head dims 112 (kimi-k2) and 160
+           (stablelm-12b): flash forward at their prefill shapes, backward
+           at their training shapes (B=2, S=1024) and decode over a
+           32768-slot cache, in bf16 and fp32
   parity   the kernel path against the plain path on the same float32
            weights at published widths (max abs logit error <= 2e-3):
            llama3.2-3b cut to depth 2 (and at depth 28, beside the plain
@@ -41,12 +46,17 @@ It prints one JSON object per line, one line per phase:
            falcon-mamba-7b cut to depth 2, recurrentgemma-9b cut to one
            (rglru, rglru, local_attn) pattern with a prompt past its window
   serve    the main path, once per model: repro_torch.launch.serve.main at
-           the published llama3.2-3b, falcon-mamba-7b and recurrentgemma-9b
-           configs (bf16) on fresh seeded weights, with each kernel's
-           launches counted from zero and held to their exact counts, every
-           flash launch on the "wgmma" route and every decode launch on "mma"
+           the published llama3.2-3b, falcon-mamba-7b, recurrentgemma-9b and
+           stablelm-12b configs (bf16) on fresh seeded weights, and
+           kimi-k2-1t-a32b at published widths cut to 2 layers (one dense,
+           one MoE with all 384 experts) through the ServeEngine and request
+           loop serve.main uses (serve.main has no depth flag); each
+           kernel's launches counted from zero and held to their exact
+           counts, every flash launch on the "wgmma" route and every decode
+           launch on "mma"; peak device memory
   profile  torch.profiler over one prefill and three decode steps of
-           llama3.2-3b, recurrentgemma-9b and falcon-mamba-7b: wall, host-enqueue and
+           llama3.2-3b, recurrentgemma-9b, falcon-mamba-7b, stablelm-12b and
+           kimi-k2-1t-a32b (2 layers, as served): wall, host-enqueue and
            device ms, the device's idle share, kernel launches, and the
            kernels that take the most time
   store    llama3.2-3b widths cut to 2 layers: a full commit to a mirrored
@@ -67,8 +77,18 @@ It prints one JSON object per line, one line per phase:
            counts, all flash on "wgmma"; step ms, tokens/s, peak memory,
            losses, grad norms; then every parameter's step-0 gradient,
            finite and nonzero in every layer
-  train_parity  llama3.2-3b and falcon-mamba-7b widths at depth 2,
-           recurrentgemma-9b's at one pattern: loss and every gradient on
+  train_stablelm  stablelm-12b at published widths cut to 24 of 40 layers
+           (bf16, Adafactor with bf16 momentum, no store), through the
+           Trainer train.main builds, for 4 steps of 2 x 1024 tokens; flash
+           forward and backward at head_dim 160 held to their exact counts,
+           all on "wgmma"; step ms, tokens/s, peak memory, losses; then
+           every parameter's step-0 gradient, finite and nonzero
+  train_parity  llama3.2-3b, falcon-mamba-7b and stablelm-12b widths at
+           depth 2, recurrentgemma-9b's at one pattern, and kimi-k2's at
+           depth 2 with its experts cut to 8 (top-2; in bf16 the bound is
+           held at top-8, where no token's experts can flip between the
+           paths, and top-2 is reported beside the plain path's own
+           spread): loss and every gradient on
            the kernel path against the plain path, from the same weights and
            batch; in float32 (the CUDA-core kernels; each gradient within
            2e-3 of its largest entry) and in bf16 (the wgmma kernels; within
@@ -83,8 +103,9 @@ It prints one JSON object per line, one line per phase:
            flash launch on the "wgmma" route
   time     the seconds of the whole run, the kernels' build included
   kernels  every kernel of the path: its launches over the phase that runs
-           it (serve, train, train_recurrent or lifecycle), and the numbers
-           of its case; the
+           it (serve, train, train_recurrent, train_stablelm or lifecycle),
+           by head dim for the attention kernels, and the numbers of its
+           case; the
            flash and decode entries also name their design (one kernel a
            dtype), decode adds its recurrentgemma-9b case, mamba its design
 
@@ -110,7 +131,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_recurrent",
-          "train_parity", "lifecycle")
+          "train_stablelm", "train_parity", "lifecycle")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
 SFU_EXP_PER_S = 132 * 16 * 1.98e9   # exponentials: 16 an SM a clock, 132 SMs, 1.98 GHz boost
@@ -119,6 +140,8 @@ RTOL = 1e-2
 SCAN_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (5e-4, 1e-3)}  # tests/test_kernels.py:79-80
 LLAMA = dict(B=4, Hq=24, Hkv=8, D=128)                     # llama3.2-3b attention widths
 RGEMMA = dict(B=4, Hq=16, Hkv=1, D=256)                    # recurrentgemma-9b local attention
+STABLELM = dict(B=4, Hq=32, Hkv=8, D=160)                  # stablelm-12b attention widths
+KIMI = dict(B=4, Hq=64, Hkv=8, D=112)                      # kimi-k2-1t-a32b attention widths
 LLAMA_EMBED = 128256 * 3072                                 # llama3.2-3b's embedding, elements
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
 # train_recurrent: each model as published (bf16, Adafactor with bf16
@@ -129,6 +152,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
 TRAIN_RECURRENT = (("falcon-mamba-7b", 64, 1, {"mamba_scan": 64}),
                    ("recurrentgemma-9b", 38, 2, {"rglru_scan": 26, "flash_attention": 12}))
 TRAIN_RECURRENT_STEPS = 4
+# train_stablelm: (arch, published layers, layers run, batch).  The
+# published 40 layers do not train on one card: 12.14 B parameters at 6 bytes
+# each (bf16 weights, gradients and Adafactor momentum) are 73 GB before any
+# activation.  24 layers (7.7 B parameters) and 2 x 1024 tokens fit
+TRAIN_STABLELM = ("stablelm-12b", 40, 24, 2)
+TRAIN_STABLELM_STEPS = 4
 FLASH_DESIGN = "wgmma+TMA (bf16); CUDA cores (fp32)"  # the flash kernels: one a dtype
 DECODE_DESIGN = ("mma.sync m16n8k16 on a 3-stage cp.async ring, splits from the SM count "
                  "(bf16); CUDA cores, 256-key chunks of the cache (fp32)")
@@ -696,6 +725,29 @@ def phase_kernels(torch):
     flash_bwd_case(torch, timer, "recurrentgemma-9b (MQA, D=256), S 3072, window 2048", S=3072,
                    dtype="bfloat16", window=2048, **RGEMMA)
     torch.cuda.empty_cache()
+    # head dims 160 (stablelm-12b) and 112 (kimi-k2), at the shapes their
+    # serve, train_stablelm and train_parity runs give the kernels
+    for key, name, widths, prompt, lengths in (
+            ("d160", "stablelm-12b", STABLELM, 1024, [1025, 1056, 1040, 1031]),
+            ("d112", "kimi-k2-1t-a32b", KIMI, 256, [257, 288, 270, 263])):
+        d = widths["D"]
+        lines[f"flash_{key}"] = flash_case(torch, timer, f"{name} prefill (D={d}), S 1024",
+                                           Sq=1024, Sk=1024, dtype="bfloat16", **widths)
+        flash_case(torch, timer, f"{name} prefill fp32 (D={d}), S 1024", Sq=1024, Sk=1024,
+                   dtype="float32", **widths)
+        if prompt != 1024:  # the serve phase's own prompt
+            lines[f"flash_{key}_serve"] = flash_case(
+                torch, timer, f"{name} prefill (D={d}), S {prompt}", Sq=prompt, Sk=prompt,
+                dtype="bfloat16", **widths)
+        lines[f"decode_{key}"] = decode_case(torch, timer, f"{name} decode (D={d}), cache 32768",
+                                             S=32768, dtype="bfloat16", lengths=lengths, **widths)
+        decode_case(torch, timer, f"{name} decode fp32 (D={d}), cache 32768", S=32768,
+                    dtype="float32", lengths=lengths, **widths)
+        train = dict(widths, B=2, S=TRAIN_SEQ)
+        lines[f"flash_bwd_{key}"] = flash_bwd_case(torch, timer, f"{name} training (D={d})",
+                                                   dtype="bfloat16", **train)
+        flash_bwd_case(torch, timer, f"{name} training fp32 (D={d})", dtype="float32", **train)
+        torch.cuda.empty_cache()
     lines["mamba_bwd"] = mamba_bwd_case(torch, timer, "falcon-mamba-7b, h0 and dhT", B=4,
                                         S=1024, Din=8192, N=16, dtype="bfloat16")
     mamba_bwd_case(torch, timer, "falcon-mamba-7b fp32, h0 and dhT", B=4, S=1024, Din=8192,
@@ -821,36 +873,67 @@ def phase_parity(torch):
             raise AssertionError(f"parity: {line}")
 
 
-# the serve phase's models and traffic: (arch, layers, prompt, launches per
-# request of each kernel: one per layer of its mixer at prefill, one per
-# attention layer and decode step)
-SERVE = (("llama3.2-3b", 28, 1024, {"flash_attention": 28, "decode_attention": 28 * 32}),
-         ("falcon-mamba-7b", 64, 1024, {"mamba_scan": 64}),
-         ("recurrentgemma-9b", 38, 3072, {"rglru_scan": 26, "flash_attention": 12,
-                                          "decode_attention": 12 * 32}))
+# the serve phase's models and traffic: (arch, published layers, layers run,
+# prompt, launches per request of each kernel: one per layer of its mixer at
+# prefill, one per attention layer and decode step).  kimi-k2-1t-a32b runs
+# its published widths cut to 2 layers, layer 0 dense and layer 1 MoE with
+# all 384 experts: the 61 layers are 1.03 T parameters, and layer 1 alone is
+# 17 B (34 GB in bf16)
+SERVE = (("llama3.2-3b", 28, 28, 1024, {"flash_attention": 28, "decode_attention": 28 * 32}),
+         ("falcon-mamba-7b", 64, 64, 1024, {"mamba_scan": 64}),
+         ("recurrentgemma-9b", 38, 38, 3072, {"rglru_scan": 26, "flash_attention": 12,
+                                              "decode_attention": 12 * 32}),
+         ("stablelm-12b", 40, 40, 1024, {"flash_attention": 40, "decode_attention": 40 * 32}),
+         ("kimi-k2-1t-a32b", 61, 2, 256, {"flash_attention": 2, "decode_attention": 2 * 32}))
+
+
+def _serve_cut(torch, arch, layers, batch, prompt, max_new, requests):
+    """serve.main's run at the published `arch` cut to `layers`: the same
+    DecoderLM, ServeEngine and request loop, with the seed serve.main uses."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import DecoderLM
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=batch, max_new_tokens=max_new),
+                      device="cuda")
+    del params
+    stats = serve.serve_requests(eng, cfg.vocab_size, batch, prompt, requests, seed=0)
+    del eng
+    return stats
 
 
 def phase_serve(torch):
     """One serve line per model; returns each kernel's launches summed over
-    the phase."""
+    the phase, and each model's."""
     from repro_torch.kernels import decode_attention, flash_attention, mamba_scan, rglru_scan
     from repro_torch.launch import serve
 
     mods = {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "rglru_scan": rglru_scan, "mamba_scan": mamba_scan}
-    requests, max_new = 3, 32
+    batch, requests, max_new = 4, 3, 32
     total = dict.fromkeys(mods, 0)
-    for arch, layers, prompt, per_request in SERVE:
+    by_arch = {}
+    for arch, published, layers, prompt, per_request in SERVE:
         torch.cuda.reset_peak_memory_stats()
         for m in mods.values():
             m.launches = 0
         _zero_routes()
-        stats = serve.main(["--arch", arch, "--full", "--batch", "4", "--prompt-len", str(prompt),
-                            "--max-new", str(max_new), "--requests", str(requests)])
+        if layers == published:
+            stats = serve.main(["--arch", arch, "--full", "--batch", str(batch), "--prompt-len",
+                                str(prompt), "--max-new", str(max_new), "--requests",
+                                str(requests)])
+        else:
+            stats = _serve_cut(torch, arch, layers, batch, prompt, max_new, requests)
         launches = {k: m.launches for k, m in mods.items()}
         steady = slice(1, None)  # the first request also loads the kernels and cuBLAS
-        line = {"phase": "serve", "arch": arch, "layers": layers, "dtype": "bfloat16",
-                "batch": 4, "prompt_len": prompt, "max_new": max_new, "requests": requests,
+        line = {"phase": "serve", "arch": arch, "layers": layers,
+                "reduced": None if layers == published else {"n_layers": [published, layers]},
+                "dtype": "bfloat16", "batch": batch, "prompt_len": prompt, "max_new": max_new,
+                "requests": requests,
                 "prefill_ms": [t * 1e3 for t in stats["prefill_s"]],
                 "decode_ms_per_step": [t * 1e3 / n for t, n in zip(stats["decode_s"],
                                                                   stats["decode_steps"])],
@@ -878,26 +961,31 @@ def phase_serve(torch):
                                  f"{decode_routes}; finite {stats['logits_finite']}")
         for k in mods:
             total[k] += launches[k]
+        by_arch[arch] = launches
         torch.cuda.empty_cache()
-    return total
+    return total, by_arch
 
 
-def phase_profile(torch, arch, prompt):
+def phase_profile(torch, arch, prompt, layers=None):
     """Where a request's time goes: one prefill and three decode steps of
-    the published `arch` under torch.profiler, after a warm-up.  Device
-    time is the sum of kernel times (one stream, so they do not overlap);
-    the rest of the wall time the card is idle, waiting for the host."""
+    the published `arch` (cut to `layers`, as the serve phase runs it) under
+    torch.profiler, after a warm-up.  Device time is the sum of kernel times
+    (one stream, so they do not overlap); the rest of the wall time the card
+    is idle, waiting for the host."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (4, prompt), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(4))
-    line = {"phase": "profile", "arch": arch, "batch": 4, "prompt_len": prompt}
+    line = {"phase": "profile", "arch": arch, "layers": cfg.n_layers, "batch": 4,
+            "prompt_len": prompt}
     with torch.inference_mode():
         logits, cache = model.prefill(params, {"tokens": toks})
         nxt = logits.argmax(-1)
@@ -1146,17 +1234,20 @@ def phase_train_recurrent(torch):
     return total
 
 
-def _step0_gradients(torch, arch, batch):
-    """Every parameter's gradient at step 0 of the train_recurrent run's
-    weights (seed 0) and first batch, on the kernel path: finite, and
-    nonzero in every layer of a stacked parameter.  A scan that passed no
-    gradient would leave every parameter upstream of it at zero."""
+def _step0_gradients(torch, arch, batch, layers=None, phase="train_recurrent"):
+    """Every parameter's gradient at step 0 of the `phase` run's weights
+    (seed 0) and first batch, on the kernel path, at the published `arch`
+    (cut to `layers`): finite, and nonzero in every layer of a stacked
+    parameter.  A scan or an attention backward that passed no gradient
+    would leave every parameter upstream of it at zero."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.models import DecoderLM
     from repro_torch.tree import flatten_named, tree_map_named
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     data = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size, global_batch=batch,
@@ -1173,8 +1264,8 @@ def _step0_gradients(torch, arch, batch):
             bad.append(name)
         norms[name] = float(g.double().norm())
     layer0 = {n.split("/")[-1]: norms[n] for n in norms if n.startswith("blocks/0/l0/mixer/")}
-    line = {"phase": "train_recurrent", "what": "step-0 gradients, kernel path", "arch": arch,
-            "loss": float(loss.detach()), "parameters": len(grads),
+    line = {"phase": phase, "what": "step-0 gradients, kernel path", "arch": arch,
+            "layers": cfg.n_layers, "loss": float(loss.detach()), "parameters": len(grads),
             "finite_and_nonzero_in_every_layer": len(grads) - len(bad), "failed": bad,
             "global_norm": float(np.sqrt(sum(v * v for v in norms.values()))),
             "first_mixer_grad_norms": layer0}
@@ -1182,7 +1273,69 @@ def _step0_gradients(torch, arch, batch):
     del grads, leaves, params, loss
     torch.cuda.empty_cache()
     if bad:
-        raise AssertionError(f"train_recurrent {arch}: step-0 gradients zero or not finite: {bad}")
+        raise AssertionError(f"{phase} {arch}: step-0 gradients zero or not finite: {bad}")
+
+
+def phase_train_stablelm(torch):
+    """stablelm-12b's training path: the Trainer train.main builds, at the
+    published widths cut to TRAIN_STABLELM's depth (train.main has no depth
+    flag), bf16, Adafactor with bf16 momentum, no store, for
+    TRAIN_STABLELM_STEPS steps; flash forward and backward at head_dim 160
+    held to their exact counts, all on "wgmma".  The loss rises and the
+    gradient norm grows over the steps: the random llama-like init's known
+    exploding norm (ROADMAP caveat F3), not a fault.  Then every parameter's
+    step-0 gradient, finite and nonzero in every layer.  Returns the flash
+    launches of the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import OptConfig, TrainConfig, Trainer, TrainerConfig
+
+    arch, published, layers, batch = TRAIN_STABLELM
+    steps = TRAIN_STABLELM_STEPS
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    tcfg = TrainConfig(opt=OptConfig(kind="adafactor", lr=1e-3, momentum_dtype="bfloat16"))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=batch, seq_len=TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fb.launches = 0
+    _zero_routes()
+    tr = Trainer(DecoderLM(cfg), tcfg, dcfg, seed=0, device="cuda")
+    tr.init()
+    t0 = time.monotonic()
+    out = tr.run(TrainerConfig(total_steps=steps))
+    seconds = time.monotonic() - t0
+    del tr
+    metrics = out["metrics"]
+    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
+    routes = {"flash_attention": dict(fa.launches_by_route),
+              "flash_attention_bwd": dict(fb.launches_by_route)}
+    step_s = [m["seconds"] for m in metrics]
+    losses = [m["loss"] for m in metrics]
+    step_ms = float(np.median(step_s[1:])) * 1e3  # the first step also loads the kernels
+    line = {"phase": "train_stablelm", "arch": arch, "layers": layers,
+            "reduced": {"n_layers": [published, layers],
+                        "why": "12.14 B parameters x 6 bytes (bf16 weights, gradients, "
+                               "Adafactor momentum) = 73 GB before activations"},
+            "dtype": "bfloat16", "optimizer": "adafactor", "momentum_dtype": "bfloat16",
+            "global_batch": batch, "seq_len": TRAIN_SEQ, "steps": steps,
+            "step_ms": [t * 1e3 for t in step_s], "median_steady_step_ms": step_ms,
+            "tokens_per_s": batch * TRAIN_SEQ / (step_ms / 1e3), "losses": losses,
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "all_finite": bool(np.all(np.isfinite(losses))), "seconds": seconds,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches,
+            "launches_by_route": routes}
+    emit(line)
+    want = {k: layers * steps for k in launches}
+    want_routes = {k: {"wgmma": n, "cuda_core": 0} for k, n in want.items()}
+    if launches != want or routes != want_routes or not line["all_finite"]:
+        raise AssertionError(f"train_stablelm: launches {launches}, want {want}; routes "
+                             f"{routes}; finite {line['all_finite']}")
+    del out
+    torch.cuda.empty_cache()
+    _step0_gradients(torch, arch, batch, layers=layers, phase="train_stablelm")
+    return launches
 
 
 # train_parity's tolerances: (each gradient's max error relative to its
@@ -1212,12 +1365,21 @@ def _standard_fan_in(torch, params):
 
 
 # train_parity's models: (arch, layers, cut, each kernel's launches on one
-# kernel path's loss and gradients, forward and backward alike)
+# kernel path's loss and gradients, forward and backward alike, and the MoE
+# config's cut).  kimi-k2's layer 1 keeps 8 of its 384 experts, top-2: 384
+# experts' weights and gradients (one MoE layer is 34 GB of bf16 weights)
+# do not fit beside the two paths' fp32 gradients.  In bf16 its top-2
+# comparison is reported and the bound is held at top-8 (phase_train_parity)
 TRAIN_PARITY = (
-    ("llama3.2-3b", 2, "depth 28 -> 2; widths as published", {"flash_attention": 2}),
-    ("falcon-mamba-7b", 2, "depth 64 -> 2; widths as published", {"mamba_scan": 2}),
+    ("llama3.2-3b", 2, "depth 28 -> 2; widths as published", {"flash_attention": 2}, None),
+    ("falcon-mamba-7b", 2, "depth 64 -> 2; widths as published", {"mamba_scan": 2}, None),
     ("recurrentgemma-9b", 3, "depth 38 -> 3, one (rglru, rglru, local_attn) pattern; widths "
-     "as published", {"rglru_scan": 2, "flash_attention": 1}))
+     "as published", {"rglru_scan": 2, "flash_attention": 1}, None),
+    ("stablelm-12b", 2, "depth 40 -> 2; widths as published (head_dim 160)",
+     {"flash_attention": 2}, None),
+    ("kimi-k2-1t-a32b", 2, "depth 61 -> 2 (layer 0 dense, layer 1 MoE); widths as published "
+     "(head_dim 112, d_expert 2048, 1 shared expert); experts 384 -> 8, top-8 -> top-2",
+     {"flash_attention": 2}, {"num_experts": 8, "top_k": 2}))
 
 
 def _kernel_counters():
@@ -1235,13 +1397,14 @@ def _kernel_counters():
 
 def phase_train_parity(torch):
     """Loss and gradients on the kernel path against the plain path, from
-    the same weights and batch, at the widths of llama3.2-3b (depth 2),
-    falcon-mamba-7b (depth 2) and recurrentgemma-9b (one pattern): in
-    float32 (the CUDA-core attention kernels) at the JAX init, and in bf16
-    (the wgmma ones), where the archs with attention take wq and wk at the
-    standard fan-in, beside the plain path against itself at block_k 64
-    (bf16's noise floor); their bf16 kernel path at the JAX init is reported
-    too, not held to a bound."""
+    the same weights and batch, at the widths of llama3.2-3b, falcon-mamba-7b
+    and stablelm-12b (depth 2), recurrentgemma-9b (one pattern) and kimi-k2
+    (depth 2, 8 experts): in float32 (the CUDA-core attention kernels) at
+    the JAX init, and in bf16 (the wgmma ones), where the archs with
+    attention take wq and wk at the standard fan-in, beside the plain path
+    against itself at block_k 64 (bf16's noise floor); their bf16 kernel
+    path at the JAX init is reported too, not held to a bound.  Returns each
+    arch's kernel launches on its kernel paths, both dtypes summed."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.kernels import flash_attention as fa
@@ -1262,17 +1425,20 @@ def phase_train_parity(torch):
                 for n, g in b.items()}
 
     counters = _kernel_counters()
-    failed = []
-    for arch, layers, cut, per_path in TRAIN_PARITY:
+    failed, ran = [], {}
+    for arch, layers, cut, per_path, moe_cut in TRAIN_PARITY:
         attention = "flash_attention" in per_path
         for dtype, (tol, loss_tol) in TRAIN_PARITY_TOL.items():
             cfg = dataclasses.replace(get_config(arch), dtype=dtype, n_layers=layers)
+            if moe_cut:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_cut))
             params = DecoderLM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
             batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticPipeline(DataConfig(
                 vocab_size=cfg.vocab_size, global_batch=2, seq_len=256)).batch_at(0).items()}
             route = fa._route(getattr(torch, dtype), cfg.head_dim) if attention else None
             line = {"phase": "train_parity", "arch": arch, "layers": layers, "dtype": dtype,
-                    "route": route, "cut": cut, "batch": 2, "seq_len": 256}
+                    "route": route, "head_dim": cfg.hd if attention else None, "cut": cut,
+                    "batch": 2, "seq_len": 256}
             if dtype == "bfloat16" and attention:
                 loss_k, grads_k = loss_and_grads(cfg, params, batch, "cuda")
                 loss_p, grads_p = loss_and_grads(cfg, params, batch, "torch")
@@ -1282,11 +1448,35 @@ def phase_train_parity(torch):
                         err.values()), "worst_grad": max(err, key=err.get)}
                 line["init"] = "wq, wk at the standard fan-in (d_model)"
                 params = _standard_fan_in(torch, params)
+                del grads_k, grads_p
+            if dtype == "bfloat16" and moe_cut:
+                # a top-k router's choice jumps where two experts' scores
+                # cross: bf16's noise moves a few of 512 tokens to other
+                # experts between any two right paths (the plain path
+                # against itself at block_k 64 too), and their experts'
+                # gradients with them.  Reported, not bounded; the bound
+                # holds at top-E, where every token takes every expert
+                loss_k, grads_k = loss_and_grads(cfg, params, batch, "cuda")
+                loss_p, grads_p = loss_and_grads(cfg, params, batch, "torch")
+                err = rel(grads_k, grads_p)
+                floor = rel(loss_and_grads(cfg, params, batch, "torch", attn_block_k=64)[1],
+                            grads_p)
+                line["top_k_not_bounded"] = {
+                    "top_k": cfg.moe.top_k, "loss_abs_err": abs(loss_k - loss_p),
+                    "max_grad_err_rel_to_scale": max(err.values()),
+                    "worst_grad": max(err, key=err.get),
+                    "plain_vs_plain_block_k_64_max_rel": max(floor.values()),
+                    "plain_vs_plain_worst_grad": max(floor, key=floor.get)}
+                del grads_k, grads_p
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, top_k=cfg.moe.num_experts))
+                line["moe_top_k"] = cfg.moe.top_k
             for mod, attr in counters.values():
                 setattr(mod, attr, 0)
             _zero_routes()
             loss_k, grads_k = loss_and_grads(cfg, params, batch, "cuda")
             launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+            ran[arch] = {k: ran.get(arch, {}).get(k, 0) + n for k, n in launches.items()}
             routes = {"flash_attention": dict(fa.launches_by_route),
                       "flash_attention_bwd": dict(fb.launches_by_route)}
             loss_p, grads_p = loss_and_grads(cfg, params, batch, "torch")
@@ -1314,6 +1504,7 @@ def phase_train_parity(torch):
                 failed.append(line)
     if failed:
         raise AssertionError(f"train_parity: {failed}")
+    return ran
 
 
 def phase_lifecycle(torch):
@@ -1431,6 +1622,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         return _fail("no CUDA device is available")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1453,49 +1645,81 @@ def main(argv=None) -> int:
     cases = phase_kernels(torch) if "kernel" in only else None
     if "parity" in only:
         phase_parity(torch)
-    launches = phase_serve(torch) if "serve" in only else None
+    served = phase_serve(torch) if "serve" in only else None
     if "profile" in only:
         phase_profile(torch, "llama3.2-3b", 1024)
         phase_profile(torch, "recurrentgemma-9b", 3072)
         phase_profile(torch, "falcon-mamba-7b", 1024)
+        phase_profile(torch, "stablelm-12b", 1024)
+        phase_profile(torch, "kimi-k2-1t-a32b", 256, layers=2)
     if "store" in only:
         phase_store(torch)
     train = phase_train(torch) if "train" in only else None
     recurrent = phase_train_recurrent(torch) if "train_recurrent" in only else None
-    if "train_parity" in only:
-        phase_train_parity(torch)
+    stablelm = phase_train_stablelm(torch) if "train_stablelm" in only else None
+    parity = phase_train_parity(torch) if "train_parity" in only else None
     lifecycle = phase_lifecycle(torch) if "lifecycle" in only else None
     emit({"phase": "time", "seconds": time.perf_counter() - t_start})
-    if None in (cases, launches, train, recurrent, lifecycle):
+    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle):
         return 0  # a partial run checks what it ran and claims nothing more
 
     # each kernel's launches over the phase of the main path that runs it:
-    # serving (the attention forward, decode, the scans), training (the
-    # attention backward at llama's head_dim 128), the recurrent family's
-    # training (the scans' backward, the attention backward at head_dim 256)
-    # and the lifecycle's commits (top-k, checksums).  One CUDA kernel
-    # replaces both Pallas checksums: the main path calls it as a wave, and
-    # its one-segment call (fletcher32) rides in that entry
+    # serving (the attention forward, decode, the scans; by head dim, each
+    # model's), training (the attention backward at llama's head_dim 128),
+    # the recurrent family's training (the scans' backward, the attention
+    # backward at head_dim 256), stablelm-12b's training (the attention
+    # backward at head_dim 160) and the lifecycle's commits (top-k,
+    # checksums).  kimi-k2 trains on no main path (one of its MoE layers is
+    # 34 GB of bf16 weights): the backward at head_dim 112 runs in
+    # train_parity, and its entry says so.  One CUDA kernel replaces both
+    # Pallas checksums: the main path calls it as a wave, and its
+    # one-segment call (fletcher32) rides in that entry
+    launches, by_arch = served
     ran = dict(launches, flash_attention_bwd=train["flash_attention_bwd"],
                flash_attention_bwd_d256=recurrent["flash_attention_bwd"],
+               flash_attention_bwd_d160=stablelm["flash_attention_bwd"],
+               flash_attention_bwd_d112=parity["kimi-k2-1t-a32b"]["flash_attention_bwd"],
+               flash_attention_d160=by_arch["stablelm-12b"]["flash_attention"],
+               flash_attention_d112=by_arch["kimi-k2-1t-a32b"]["flash_attention"],
+               decode_attention_d160=by_arch["stablelm-12b"]["decode_attention"],
+               decode_attention_d112=by_arch["kimi-k2-1t-a32b"]["decode_attention"],
                mamba_scan_bwd=recurrent["mamba_scan_bwd"],
                rglru_scan_bwd=recurrent["rglru_scan_bwd"],
                topk_compress=lifecycle["topk_compress"],
                fletcher32_wave=lifecycle["fletcher32_wave"])
+    from_phase = dict.fromkeys(("flash_attention", "decode_attention", "rglru_scan",
+                                "mamba_scan", "flash_attention_d160", "flash_attention_d112",
+                                "decode_attention_d160", "decode_attention_d112"), "serve")
+    from_phase.update(flash_attention_bwd="train", flash_attention_bwd_d256="train_recurrent",
+                      mamba_scan_bwd="train_recurrent", rglru_scan_bwd="train_recurrent",
+                      flash_attention_bwd_d160="train_stablelm",
+                      flash_attention_bwd_d112="train_parity", topk_compress="lifecycle",
+                      fletcher32_wave="lifecycle")
+    bwd_grad = ("src/repro/kernels/flash_attention.py:91 (its gradient{}; JAX differentiates "
+                "src/repro/kernels/ref.py:flash_attention_reference)")
     kernels = []
     for key, name, source, replaces in (
             ("flash", "flash_attention", "flash_attention_sm90",
              "src/repro/kernels/flash_attention.py:91"),
-            ("flash_bwd", "flash_attention_bwd", "flash_attention_bwd_sm90",
-             "src/repro/kernels/flash_attention.py:91 (its gradient; JAX differentiates "
-             "src/repro/kernels/ref.py:flash_attention_reference)"),
+            ("flash_bwd", "flash_attention_bwd", "flash_attention_bwd_sm90", bwd_grad.format("")),
             ("decode", "decode_attention", "decode_attention_sm90",
              "src/repro/kernels/decode_attention.py:70"),
             ("rglru", "rglru_scan", "rglru_scan", "src/repro/kernels/rglru_scan.py:57"),
             ("mamba", "mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan.py:68"),
             ("flash_bwd_d256", "flash_attention_bwd_d256", "flash_attention_bwd_sm90",
-             "src/repro/kernels/flash_attention.py:91 (its gradient at head_dim 256; JAX "
-             "differentiates src/repro/kernels/ref.py:flash_attention_reference)"),
+             bwd_grad.format(" at head_dim 256")),
+            ("flash_d160", "flash_attention_d160", "flash_attention_sm90",
+             "src/repro/kernels/flash_attention.py:91 (at head_dim 160)"),
+            ("flash_d112", "flash_attention_d112", "flash_attention_sm90",
+             "src/repro/kernels/flash_attention.py:91 (at head_dim 112)"),
+            ("flash_bwd_d160", "flash_attention_bwd_d160", "flash_attention_bwd_sm90",
+             bwd_grad.format(" at head_dim 160")),
+            ("flash_bwd_d112", "flash_attention_bwd_d112", "flash_attention_bwd_sm90",
+             bwd_grad.format(" at head_dim 112")),
+            ("decode_d160", "decode_attention_d160", "decode_attention_sm90",
+             "src/repro/kernels/decode_attention.py:70 (at head_dim 160)"),
+            ("decode_d112", "decode_attention_d112", "decode_attention_sm90",
+             "src/repro/kernels/decode_attention.py:70 (at head_dim 112)"),
             ("mamba_bwd", "mamba_scan_bwd", "mamba_scan",
              "src/repro/kernels/mamba_scan.py:68 (its gradient; JAX differentiates "
              "src/repro/kernels/ref.py:mamba_scan_reference)"),
@@ -1510,13 +1734,25 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}.cu",
                         "replaces": replaces, "launches": ran[name],
+                        "launches_from": from_phase[name], "case": c["case"],
                         "max_abs_err": c["max_err"], "ms": c["kernel_ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "checked": True})
-        if key in ("flash", "flash_bwd", "flash_bwd_d256", "decode"):  # the bf16 kernel's
-            kernels[-1].update(design=DECODE_DESIGN if key == "decode" else FLASH_DESIGN,
+        if key.startswith(("flash", "decode")):  # the bf16 kernel's
+            kernels[-1].update(design=DECODE_DESIGN if key.startswith("decode") else FLASH_DESIGN,
                                fp32_source=f"src/repro_torch/kernels/csrc/{source[:-5]}.cu")
+        if key in ("flash", "decode"):  # every head dim's launches in the serve phase
+            kernels[-1]["launches_by_head_dim"] = {
+                str(get_config(arch).hd): n[name] for arch, n in by_arch.items() if n[name]}
+        if key == "flash_bwd_d112":
+            kernels[-1]["note"] = ("kimi-k2 trains on no main path: its launches are "
+                                   "train_parity's, at its widths with 8 experts")
+        if key in ("flash_d112",):  # at the serve phase's own prompt too
+            sv = cases["flash_d112_serve"]
+            kernels[-1]["at_serve_shape"] = {
+                k: sv[k] for k in ("case", "max_err", "kernel_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")}
         if key == "decode":  # at recurrentgemma-9b's shape too, and SDPA over the live keys
             rg = cases["decode_rgemma"]
             kernels[-1].update(library_live_ms=c["library_live_ms"], at_d256={

@@ -21,7 +21,8 @@
 // enough blocks in flight to pull that bandwidth at batch 4 with 8 KV heads;
 // the scratch traffic is one fp32 row per (chunk, head), small next to K/V.
 //
-// Head dims 32, 64, 128 and 256.  The split pass's shared memory grows with
+// Head dims 32, 64, 112, 128, 160 and 256 (the combine pass runs D threads a
+// block).  The split pass's shared memory grows with
 // the group: recurrentgemma-9b (D=256, 16 query heads on one KV head) needs
 // 168,384 bytes, so `launch` raises each instance's dynamic limit to its
 // need.  With one KV head and a 2048-slot ring, that shape runs only 8
@@ -189,7 +190,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
     case 64: return launch<T, 64>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
     case 128: return launch<T, 128>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
+    case 160: return launch<T, 160>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
     case 256: return launch<T, 256>(q, k, v, length, o, part_ml, part_acc, B, Hq, Hkv, S, n_chunks, scale, stream);
     default: return cudaErrorInvalidValue;
   }

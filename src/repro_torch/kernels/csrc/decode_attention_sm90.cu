@@ -42,8 +42,12 @@
 //    griddepcontrol.wait, so no launch gap separates the two.  A split with
 //    no keys writes (NEG_INF, 0) and a zero partial, which the merge weighs 0.
 //
-// Head dims 32, 64, 128 and 256: TK = 64 keys and four warps (32 at D=256,
-// two warps), so the ring is 96 KB at D=128 and 256 and two blocks fit an SM.
+// Head dims 32, 64, 112, 128, 160 and 256: TK = 64 keys and four warps (32
+// at D=160 and 256, two warps), so the ring is 96 KB at D=128 and 256 and two
+// blocks fit an SM.  A row of 112 or 160 columns is 14 or 20 chunks of 16
+// bytes: its row in shared memory takes whole groups of 8 chunks (16, 24), so
+// the swizzle c ^ (r & 7) stays inside the row; the chunks past the real ones
+// are never written or read.
 #include "sm90.cuh"
 #include "tile.cuh"
 
@@ -59,12 +63,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
-  static constexpr int TK = D == 256 ? 32 : 64;  // keys a stage
+  static constexpr int TK = D > 128 ? 32 : 64;   // keys a stage
   static constexpr int NW = TK / 16;             // warps, 16 keys each
   static constexpr int NT = NW * 32;
   static constexpr int CPR = D / 8;              // 16-byte chunks a row
-  static constexpr int TILE = TK * D * 2;        // bytes of a K or V tile
-  static constexpr int QBYTES = ROWS * D * 2;
+  static constexpr int ROW = (D >= 64 ? (CPR + 7) / 8 * 8 : CPR) * 16;  // bytes a row takes
+  static constexpr int TILE = TK * ROW;          // bytes of a K or V tile
+  static constexpr int QBYTES = ROWS * ROW;
   static constexpr int LDM = D + 4;              // fp32 row stride of the merge area
   static constexpr size_t SMEM = QBYTES + (size_t)STAGES * 2 * TILE;
   static_assert((size_t)NW * ROWS * (LDM + 2) * 4 <= (size_t)STAGES * 2 * TILE,
@@ -76,7 +81,7 @@ struct Cfg {
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   const int x = D >= 64 ? (r & 7) : ((r >> 1) & 3);
-  return (uint32_t)(r * D * 2 + ((c ^ x) << 4));
+  return (uint32_t)(r * Cfg<D>::ROW + ((c ^ x) << 4));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -308,9 +313,10 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
 // One block of 256 threads per (query head, batch) merges the splits.  Their
 // m are log2-domain maxima.  The weights exp2(m - M) go to shared memory; then
-// each warp takes every eighth split's partial, each lane D / 32 adjacent
-// columns, so the partials' loads are in flight together, and the eight
-// warps' sums meet in shared memory.  A split with no keys (l = 0, a zero
+// each warp takes every eighth split's partial, each lane VPL adjacent
+// columns (D / 32 rounded up to a power of two: the lanes past D / VPL idle
+// at D = 112 and 160), so the partials' loads are in flight together, and the
+// eight warps' sums meet in shared memory.  A split with no keys (l = 0, a zero
 // partial) weighs 0, so a row with no visible key gives 0.
 constexpr int MERGE_NT = 256;
 
@@ -329,11 +335,15 @@ __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) 
   return v;
 }
 
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
+}
+
 template <int D>
 __global__ void __launch_bounds__(MERGE_NT)
 decode_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
                     __nv_bfloat16* __restrict__ o, int Hq, int n_split) {
-  constexpr int NW = MERGE_NT / 32, VPL = D / 32;
+  constexpr int NW = MERGE_NT / 32, VPL = pow2_at_least((D + 31) / 32);
   extern __shared__ float wts[];  // [n_split]
   __shared__ float red[NW];
   __shared__ float sums[NW][D];
@@ -358,9 +368,10 @@ decode_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__
   float a[VPL];
 #pragma unroll
   for (int i = 0; i < VPL; ++i) a[i] = 0.f;
+  const bool active = D % (32 * VPL) == 0 || lane * VPL < D;  // a lane with columns
   const float* pa = part_acc + row * n_split * D + lane * VPL;
 #pragma unroll 4
-  for (int c = warp; c < n_split; c += NW) {
+  for (int c = warp; active && c < n_split; c += NW) {
     const float w = wts[c];
     float v[VPL];
     if constexpr (VPL >= 4) {
@@ -375,8 +386,10 @@ decode_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__
 #pragma unroll
     for (int i = 0; i < VPL; ++i) a[i] = fmaf(v[i], w, a[i]);
   }
+  if (active) {
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) sums[warp][lane * VPL + i] = a[i];
+    for (int i = 0; i < VPL; ++i) sums[warp][lane * VPL + i] = a[i];
+  }
   __syncthreads();
   for (int d = tid; d < D; d += MERGE_NT) {
     float t = 0.f;
@@ -447,7 +460,9 @@ extern "C" int repro_decode_sm90_blocks_per_sm(int D) {
   switch (D) {
     case 32: return blocks_per_sm<32>();
     case 64: return blocks_per_sm<64>();
+    case 112: return blocks_per_sm<112>();
     case 128: return blocks_per_sm<128>();
+    case 160: return blocks_per_sm<160>();
     case 256: return blocks_per_sm<256>();
     default: return -1;
   }
@@ -467,7 +482,9 @@ extern "C" int repro_decode_attention_sm90(const void* q, const void* k, const v
   switch (D) {
     case 32: return launch<32>(q, k, v, len, o, ml, acc, B, Hq, Hkv, S, n_split, scale, s);
     case 64: return launch<64>(q, k, v, len, o, ml, acc, B, Hq, Hkv, S, n_split, scale, s);
+    case 112: return launch<112>(q, k, v, len, o, ml, acc, B, Hq, Hkv, S, n_split, scale, s);
     case 128: return launch<128>(q, k, v, len, o, ml, acc, B, Hq, Hkv, S, n_split, scale, s);
+    case 160: return launch<160>(q, k, v, len, o, ml, acc, B, Hq, Hkv, S, n_split, scale, s);
     case 256: return launch<256>(q, k, v, len, o, ml, acc, B, Hq, Hkv, S, n_split, scale, s);
     default: return cudaErrorInvalidValue;
   }

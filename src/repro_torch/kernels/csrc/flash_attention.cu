@@ -25,10 +25,12 @@
 // only, which it keeps in full fp32; bf16 goes to the wgmma/TMA kernel,
 // flash_attention_sm90.cu (wgmma on fp32 is TF32, too coarse for fp32).
 //
-// Head dims 32, 64, 128 and 256 (recurrentgemma-9b's local attention).  At
-// D=256 the tiles take 213,760 bytes of shared memory, inside the 232,448 a
-// block may have, so one block runs on an SM at a time, and each thread keeps
-// 64 accumulator floats in registers.
+// Head dims 32, 64, 112 (kimi-k2), 128, 160 (stablelm-12b) and 256
+// (recurrentgemma-9b's local attention): D / 16 accumulator columns a thread
+// (7 at 112, 10 at 160).  At D=256 the tiles take 213,760 bytes of shared
+// memory, inside the 232,448 a block may have, so one block runs on an SM at
+// a time, and each thread keeps 64 accumulator floats in registers; at
+// D=160, 140,032 bytes.
 #include "tile.cuh"
 
 namespace {
@@ -189,7 +191,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
   switch (D) {
     case 32: return launch<T, 32>(REPRO_FA_ARGS);
     case 64: return launch<T, 64>(REPRO_FA_ARGS);
+    case 112: return launch<T, 112>(REPRO_FA_ARGS);
     case 128: return launch<T, 128>(REPRO_FA_ARGS);
+    case 160: return launch<T, 160>(REPRO_FA_ARGS);
     case 256: return launch<T, 256>(REPRO_FA_ARGS);
 #undef REPRO_FA_ARGS
     default: return cudaErrorInvalidValue;

@@ -34,7 +34,9 @@
 // dP, so seven are issued), compute-bound on the tensor cores' 989 TFLOP/s at
 // the training shape.  Like the forward it runs on CUDA cores with register
 // tiling; the wrapper sends it fp32 inputs only, and bf16 goes to the wgmma/TMA
-// kernels of flash_attention_bwd_sm90.cu.  Head dims 32, 64, 128 and 256.
+// kernels of flash_attention_bwd_sm90.cu.  Head dims 32, 64, 112, 128, 160
+// and 256; at 160 the dK/dV kernel's 64-row tiles take 198,656 bytes of
+// shared memory.
 #include "tile.cuh"
 
 namespace {
@@ -373,7 +375,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const
   switch (D) {
     case 32: return launch<T, 32>(REPRO_FAB_ARGS);
     case 64: return launch<T, 64>(REPRO_FAB_ARGS);
+    case 112: return launch<T, 112>(REPRO_FAB_ARGS);
     case 128: return launch<T, 128>(REPRO_FAB_ARGS);
+    case 160: return launch<T, 160>(REPRO_FAB_ARGS);
     case 256: return launch<T, 256>(REPRO_FAB_ARGS);
     default: return cudaErrorInvalidValue;
   }

@@ -52,7 +52,16 @@
 // the products.  The dQ kernel takes K/V tiles of 32 keys at D=256, so the
 // two 64-row Q and dO slabs (128 KB) and a two-stage ring of K and V (64 KB)
 // fit the 227 KB of shared memory a block may have, and dQ's 64 x 256
-// accumulator (128 registers) leaves room for S and dP.
+// accumulator (128 registers) leaves room for S and dP.  Head dims 112 and
+// 160 run on tiles of 128 and 192 columns (sm90.cuh: padded_dim): products
+// that reduce over D stop at D, and output columns past D are not stored.
+// 112 takes D=128's layout.  160 splits as 256 does, by whole 64-column
+// blocks of the tiles (an MN-major operand starts on a block): warpgroup 0
+// keeps dK and dV of columns 0-127 (128 registers), warpgroup 1 those of
+// 128-191 (64 registers, 32 of them real); the dQ kernel takes 32-key tiles,
+// as at 256, and its 64 x 192 accumulator is one m64n192 product.
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace {
@@ -69,13 +78,16 @@ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 template <int D>
 struct DkDv {
-  static constexpr bool SPLIT = D == 256;        // the warpgroups split D, not the keys
+  static constexpr int DP = padded_dim(D);       // the tiles' columns
+  static constexpr bool SPLIT = DP > 128;        // the warpgroups split D, not the keys
   static constexpr int KEYS = SPLIT ? WG_ROWS : CONSUMERS * WG_ROWS;  // keys a block
-  static constexpr int DW = SPLIT ? D / CONSUMERS : D;  // dK, dV columns a warpgroup
-  static constexpr int BQ = D >= 128 ? 32 : 64;  // q rows a tile
+  // dK, dV columns of warpgroups 0 and 1, whole 64-column blocks
+  static constexpr int DW0 = SPLIT ? round_up(DP / CONSUMERS, 64) : DP;
+  static constexpr int DW1 = SPLIT ? DP - DW0 : DP;
+  static constexpr int BQ = DP >= 128 ? 32 : 64;  // q rows a tile
   static constexpr int STAGES = 3;
-  using KVT = Tile<KEYS, D>;                     // the block's keys
-  using QT = Tile<BQ, D>;                        // a q or dO tile
+  using KVT = Tile<KEYS, DP>;                    // the block's keys
+  using QT = Tile<BQ, DP>;                       // a q or dO tile
   static constexpr int STAGE_BYTES = round_up(2 * QT::BYTES + BQ * 8, 1024);
   static constexpr int ST_OFF = 2 * KVT::BYTES;
   static constexpr int BAR_OFF = ST_OFF + STAGES * STAGE_BYTES;
@@ -84,10 +96,11 @@ struct DkDv {
 
 template <int D>
 struct Dq {
-  static constexpr int BN = D == 256 ? 32 : 64;  // keys a tile
+  static constexpr int DP = padded_dim(D);       // the tiles' columns
+  static constexpr int BN = DP > 128 ? 32 : 64;  // keys a tile
   static constexpr int STAGES = 2;
-  using QT = Tile<WG_ROWS, D>;
-  using KT = Tile<BN, D>;
+  using QT = Tile<WG_ROWS, DP>;
+  using KT = Tile<BN, DP>;
   static constexpr int DO_OFF = CONSUMERS * QT::BYTES;
   static constexpr int ST_OFF = 2 * CONSUMERS * QT::BYTES;
   static constexpr int STAGE_BYTES = 2 * KT::BYTES;
@@ -212,90 +225,100 @@ bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   setmaxnreg_inc<240>();
 
   // a consumer warpgroup: keys kb..kb + 63, dK and dV columns col0..col0 + DW - 1
-  constexpr int DW = C::DW;
-  const int krow = C::SPLIT ? 0 : wg * WG_ROWS;  // its keys' first row in the K/V tiles
-  const int kb = k0 + krow, col0 = C::SPLIT ? wg * DW : 0;
-  // its columns of the Q and dO tiles, as MN-major operands: whole column blocks
-  const uint32_t col_off = (col0 / QT::CB) * QT::BLOCK_BYTES;
-  const int t = threadIdx.x % 128, lane = t % 32;
-  const int r0 = (t / 32) * 16 + lane / 4;  // this thread's keys: kb + r0 and kb + r0 + 8
-  const int cq = 2 * (lane % 4);
-  const int key0 = kb + r0, key1 = key0 + 8;
+  auto consume = [&](auto dw) {
+    constexpr int DW = decltype(dw)::value;
+    const int krow = C::SPLIT ? 0 : wg * WG_ROWS;  // its keys' first row in the K/V tiles
+    const int kb = k0 + krow, col0 = C::SPLIT ? wg * C::DW0 : 0;
+    // its columns of the Q and dO tiles, as MN-major operands: whole column blocks
+    const uint32_t col_off = (col0 / QT::CB) * QT::BLOCK_BYTES;
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int r0 = (t / 32) * 16 + lane / 4;  // this thread's keys: kb + r0 and kb + r0 + 8
+    const int cq = 2 * (lane % 4);
+    const int key0 = kb + r0, key1 = key0 + 8;
 
-  float dk_acc[DW / 2], dv_acc[DW / 2];
+    float dk_acc[DW / 2], dv_acc[DW / 2];
 #pragma unroll
-  for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  mbar_wait(kv_bar, 0);
-  for (int it = 0; it < n_it; ++it) {
-    const int s = it % STAGES;
-    const int q0 = q_begin + (it % n_q) * BQ;
-    const uint32_t q_tile = st_s + s * C::STAGE_BYTES, do_tile = q_tile + QT::BYTES;
-    const float2* pairs = reinterpret_cast<const float2*>(gbase + C::ST_OFF + s * C::STAGE_BYTES +
-                                                          2 * QT::BYTES);
-    const int p_lo = q0 + q_offset, p_hi = p_lo + BQ - 1;  // positions of the tile's rows
-    const bool dead = kb >= Sk || (causal && kb > p_hi) ||
-                      (window > 0 && kb + WG_ROWS - 1 <= p_lo - window);
-    mbar_wait(full_bar + 8 * s, (it / STAGES) & 1);
-    if (!dead) {
-      float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T: keys x q rows
-      wgmma_fence();
+    mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES;
+      const int q0 = q_begin + (it % n_q) * BQ;
+      const uint32_t q_tile = st_s + s * C::STAGE_BYTES, do_tile = q_tile + QT::BYTES;
+      const float2* pairs = reinterpret_cast<const float2*>(gbase + C::ST_OFF + s * C::STAGE_BYTES +
+                                                            2 * QT::BYTES);
+      const int p_lo = q0 + q_offset, p_hi = p_lo + BQ - 1;  // positions of the tile's rows
+      const bool dead = kb >= Sk || (causal && kb > p_hi) ||
+                        (window > 0 && kb + WG_ROWS - 1 <= p_lo - window);
+      mbar_wait(full_bar + 8 * s, (it / STAGES) & 1);
+      if (!dead) {
+        float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T: keys x q rows
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_ss<0, 0>(st, KVT::kmajor(k_s, krow, kk), QT::kmajor(q_tile, 0, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<0, 0>(st, KVT::kmajor(k_s, krow, kk), QT::kmajor(q_tile, 0, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_ss<0, 0>(dpt, KVT::kmajor(v_s, krow, kk), QT::kmajor(do_tile, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<0, 0>(dpt, KVT::kmajor(v_s, krow, kk), QT::kmajor(do_tile, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
 
-      const bool edge = kb + WG_ROWS > Sk || (causal && kb + WG_ROWS - 1 > p_lo) ||
-                        (window > 0 && kb <= p_hi - window);
-      p_and_ds(st, dpt, scale_log2, edge,
-               [&](int j, int e) { return pairs[8 * j + cq + (e & 1)]; },
-               [&](int j, int e) {
-                 const int key = e < 2 ? key0 : key1, pos = p_lo + 8 * j + cq + (e & 1);
-                 return key < Sk && (!causal || key <= pos) && (window <= 0 || key > pos - window);
-               });
-      uint32_t pa[BQ / 16][4], sa[BQ / 16][4];  // P^T and dS^T in bf16
+        const bool edge = kb + WG_ROWS > Sk || (causal && kb + WG_ROWS - 1 > p_lo) ||
+                          (window > 0 && kb <= p_hi - window);
+        p_and_ds(st, dpt, scale_log2, edge,
+                 [&](int j, int e) { return pairs[8 * j + cq + (e & 1)]; },
+                 [&](int j, int e) {
+                   const int key = e < 2 ? key0 : key1, pos = p_lo + 8 * j + cq + (e & 1);
+                   return key < Sk && (!causal || key <= pos) && (window <= 0 || key > pos - window);
+                 });
+        uint32_t pa[BQ / 16][4], sa[BQ / 16][4];  // P^T and dS^T in bf16
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        to_a(pa[kk], st, kk);
-        to_a(sa[kk], dpt, kk);
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          to_a(pa[kk], st, kk);
+          to_a(sa[kk], dpt, kk);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          mma_rs<1>(dv_acc, pa[kk], QT::mnmajor(do_tile + col_off, kk), 1);
+          mma_rs<1>(dk_acc, sa[kk], QT::mnmajor(q_tile + col_off, kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
       }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        mma_rs<1>(dv_acc, pa[kk], QT::mnmajor(do_tile + col_off, kk), 1);
-        mma_rs<1>(dk_acc, sa[kk], QT::mnmajor(q_tile + col_off, kk), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dk_acc);
-      fence_regs(dv_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * s);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar + 8 * s);
-  }
 
-  const size_t rows = (size_t)(b * Hkv + hk) * Sk;
+    const size_t rows = (size_t)(b * Hkv + hk) * Sk;
 #pragma unroll
-  for (int j = 0; j < DW / 8; ++j) {
-    const int col = col0 + 8 * j + cq;
-    if (key0 < Sk) {
-      *reinterpret_cast<uint32_t*>(dk + (rows + key0) * D + col) =
-          pack_bf16(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + (rows + key0) * D + col) =
-          pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
+    for (int j = 0; j < DW / 8; ++j) {
+      const int col = col0 + 8 * j + cq;
+      if (C::DP != D && col0 + 8 * j >= D) break;  // padding columns
+      if (key0 < Sk) {
+        *reinterpret_cast<uint32_t*>(dk + (rows + key0) * D + col) =
+            pack_bf16(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + (rows + key0) * D + col) =
+            pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
+      }
+      if (key1 < Sk) {
+        *reinterpret_cast<uint32_t*>(dk + (rows + key1) * D + col) =
+            pack_bf16(dk_acc[4 * j + 2] * scale, dk_acc[4 * j + 3] * scale);
+        *reinterpret_cast<uint32_t*>(dv + (rows + key1) * D + col) =
+            pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+      }
     }
-    if (key1 < Sk) {
-      *reinterpret_cast<uint32_t*>(dk + (rows + key1) * D + col) =
-          pack_bf16(dk_acc[4 * j + 2] * scale, dk_acc[4 * j + 3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + (rows + key1) * D + col) =
-          pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
-    }
+  };
+  if constexpr (C::DW0 == C::DW1) {
+    consume(std::integral_constant<int, C::DW0>{});
+  } else if (wg == 0) {
+    consume(std::integral_constant<int, C::DW0>{});
+  } else {
+    consume(std::integral_constant<int, C::DW1>{});
   }
 }
 
@@ -376,9 +399,9 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   const float2 pr0 = ld[prow], pr1 = ld[prow + 8];  // rows past Sq: (+inf, 0)
   const uint32_t q_tile = q_s + wg * QT::BYTES, do_tile = do_s + wg * QT::BYTES;
 
-  float dq_acc[D / 2];
+  float dq_acc[C::DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < C::DP / 2; ++i) dq_acc[i] = 0.f;
 
   mbar_wait(q_bar, 0);
   for (int it = 0; it < n_kv; ++it) {
@@ -505,7 +528,9 @@ extern "C" int repro_flash_attention_bwd_sm90(const void* q, const void* k, cons
   switch (D) {
     case 32: return launch<32>(REPRO_FAB_ARGS);
     case 64: return launch<64>(REPRO_FAB_ARGS);
+    case 112: return launch<112>(REPRO_FAB_ARGS);
     case 128: return launch<128>(REPRO_FAB_ARGS);
+    case 160: return launch<160>(REPRO_FAB_ARGS);
     case 256: return launch<256>(REPRO_FAB_ARGS);
     default: return cudaErrorInvalidValue;
   }

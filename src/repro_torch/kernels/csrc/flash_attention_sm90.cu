@@ -29,9 +29,11 @@
 //
 // What bounds it: at llama3.2-3b's prefill shape (B=4, S=1024, causal) 25.8
 // GFLOP on 67 MB, the tensor cores' 989 TFLOP/s (about 26 us).  Head dims 32,
-// 64, 128 (BN = 128 keys) and 256 (BN = 64: the 64 x 256 fp32 accumulator is
-// 128 registers a thread, inside the 240 a consumer thread gets; 197 KB of
-// shared memory).
+// 64, 112, 128 (BN = 128 keys) and 160, 256 (BN = 64: the 64 x 256 fp32
+// accumulator is 128 registers a thread, inside the 240 a consumer thread
+// gets; 197 KB of shared memory).  112 and 160 run on tiles of 128 and 192
+// columns (sm90.cuh: padded_dim): S = Q K^T reduces over the true D, O += P V
+// is m64n128 or m64n192 and the columns past D are not stored.
 #include "sm90.cuh"
 #include "tile.cuh"
 
@@ -49,9 +51,10 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Fwd {
-  static constexpr int BN = D == 256 ? 64 : 128;  // keys a tile
-  using QT = Tile<WG_ROWS, D>;
-  using KT = Tile<BN, D>;
+  static constexpr int DP = padded_dim(D);       // the tiles' columns
+  static constexpr int BN = DP > 128 ? 64 : 128;  // keys a tile
+  using QT = Tile<WG_ROWS, DP>;
+  using KT = Tile<BN, DP>;
   static constexpr int K_OFF = CONSUMERS * QT::BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KT::BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KT::BYTES;
@@ -67,7 +70,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   using C = Fwd<D>;
   using QT = typename C::QT;
   using KT = typename C::KT;
-  constexpr int BN = C::BN;
+  constexpr int BN = C::BN, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base, k_s = base + C::K_OFF, v_s = base + C::V_OFF;
@@ -130,9 +133,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const int wg_lo = row0 + q_offset, wg_hi = min(row0 + WG_ROWS, Sq) - 1 + q_offset;
   const uint32_t q_tile = q_s + wg * QT::BYTES;
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sum
 
   mbar_wait(q_bar, 0);
@@ -192,7 +195,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       l0 = l0 * a0 + s0;
       l1 = l1 * a1 + s1;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         acc[4 * j] *= a0;
         acc[4 * j + 1] *= a0;
         acc[4 * j + 2] *= a1;
@@ -276,7 +279,9 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const vo
   switch (D) {
     case 32: return launch<32>(REPRO_FA_ARGS);
     case 64: return launch<64>(REPRO_FA_ARGS);
+    case 112: return launch<112>(REPRO_FA_ARGS);
     case 128: return launch<128>(REPRO_FA_ARGS);
+    case 160: return launch<160>(REPRO_FA_ARGS);
     case 256: return launch<256>(REPRO_FA_ARGS);
     default: return cudaErrorInvalidValue;
   }

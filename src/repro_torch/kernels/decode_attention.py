@@ -43,7 +43,7 @@ import torch
 from . import _build
 from .ref import decode_attention_reference
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 160, 256)
 ROUTES = ("mma", "cuda_core")
 GROUP_ROWS = 16  # query heads a split block of the "mma" kernel serves: mma's M
 MAX_BLOCKS_PER_SM = 4

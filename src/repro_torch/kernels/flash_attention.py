@@ -43,7 +43,7 @@ from . import _build
 from . import flash_attention_bwd as _bwd
 from .ref import flash_attention_backward_reference, flash_attention_reference
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 160, 256)
 ROUTES = ("wgmma", "cuda_core")
 
 launches = 0

@@ -20,8 +20,9 @@ Nothing falls back from one route to the other.
 What bounds it on the H100: the tensor cores.  At llama3.2-3b's training
 shape (B=4, S=1024, causal, bf16) it does 2.5x the forward's 25.8 GFLOP,
 about 65 us at 989 TFLOP/s (see the sources and PERF.md).  Head dims 32, 64,
-128 and 256 on both routes; at 256 (recurrentgemma-9b) the wgmma route splits
-D between its two consumer warpgroups.
+112, 128, 160 and 256 on both routes; at 160 (stablelm-12b) and 256
+(recurrentgemma-9b) the wgmma route splits D between its two consumer
+warpgroups.
 
 ``launches`` counts backward calls (one per backward: the C entry point
 issues the three kernels), ``launches_by_route`` the same calls by route;
@@ -39,7 +40,7 @@ import torch
 from . import _build
 from .ref import flash_attention_backward_reference
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 160, 256)
 ROUTES = ("wgmma", "cuda_core")
 SQ_PAD = 128  # the wgmma route's scratch pads each head's rows to a multiple of this
 

@@ -52,13 +52,20 @@ def main(argv=None) -> Dict[str, Any]:
         params = model.init(torch.Generator(device=device).manual_seed(args.seed))
         eng = ServeEngine(model, params, scfg, device=device)
 
-    rng = np.random.default_rng(args.seed)
+    return serve_requests(eng, cfg.vocab_size, args.batch, args.prompt_len, args.requests,
+                          args.seed)
+
+
+def serve_requests(eng: ServeEngine, vocab_size: int, batch: int, prompt_len: int,
+                   requests: int, seed: int = 0) -> Dict[str, Any]:
+    """`requests` batches of `batch` random prompts of `prompt_len` tokens
+    (numpy, from `seed`) through `eng`; returns the totals `main` returns."""
+    rng = np.random.default_rng(seed)
     total_tokens = 0
     prefill_s, decode_s, steps, finite = [], [], [], True
     t0 = time.monotonic()
-    for r in range(args.requests):
-        prompts = rng.integers(0, cfg.vocab_size,
-                               (args.batch, args.prompt_len)).astype(np.int32)
+    for r in range(requests):
+        prompts = rng.integers(0, vocab_size, (batch, prompt_len)).astype(np.int32)
         toks, stats = eng.generate(prompts)
         total_tokens += toks.shape[0] * stats["decode_steps"]
         prefill_s.append(stats["prefill_s"])
@@ -69,8 +76,8 @@ def main(argv=None) -> Dict[str, Any]:
               f"first seq tail: {toks[0, -8:].tolist()}")
     dt = time.monotonic() - t0
     print(f"[serve] {total_tokens} tokens in {dt:.2f}s "
-          f"({total_tokens/dt:.1f} tok/s on {device})")
-    return {"device": str(device), "tokens": total_tokens, "seconds": dt,
+          f"({total_tokens/dt:.1f} tok/s on {eng.device})")
+    return {"device": str(eng.device), "tokens": total_tokens, "seconds": dt,
             "prefill_s": prefill_s, "decode_s": decode_s, "decode_steps": steps,
             "logits_finite": finite}
 

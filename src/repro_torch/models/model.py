@@ -1,4 +1,5 @@
-"""DecoderLM: the dense decoder of the JAX package, in PyTorch.
+"""DecoderLM: the decoder of the JAX package, in PyTorch (dense, MoE and
+recurrent layers).
 
 Layers are grouped as in ``repro.models.model``: identical repeating
 (mixer, ffn) patterns form a group whose params carry a leading
@@ -27,13 +28,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from . import layers
+from . import layers, moe
 from .config import ModelConfig
 from .params import ParamSpec, abstract_params, init_params
 
 Params = Any
-
-_MOE = "MoE ffn is not ported yet: ROADMAP.md queue 1 item 9 (MoE)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +69,7 @@ def _ffn_specs(cfg: ModelConfig, ffn: str):
     if ffn == "dense":
         return layers.ffn_specs(cfg)
     if ffn == "moe":
-        raise NotImplementedError(_MOE)
+        return moe.moe_specs(cfg)
     if ffn == "none":
         return None
     raise ValueError(ffn)
@@ -147,7 +146,7 @@ class DecoderLM:
         if ffn == "dense":
             x = layers.ffn_apply(p["ffn"], x, cfg)
         elif ffn == "moe":
-            raise NotImplementedError(_MOE)
+            x = moe.moe_apply(p["ffn"], x, cfg)
         return x
 
     def _run_blocks(self, params, x, mode, caches, pos):

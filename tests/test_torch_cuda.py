@@ -30,7 +30,7 @@ from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import topk_compress as tk
-from repro_torch.models import DecoderLM
+from repro_torch.models import DecoderLM, init_params, moe
 from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade, fletcher32_padded
 from repro_torch.training import (OptConfig, TrainConfig, Trainer, TrainerConfig,
                                   init_train_state, make_train_step)
@@ -68,6 +68,10 @@ def _randn(gen, shape, dtype):
     (1, 6, 2, 64, 64, 128),       # group of 3
     (1, 16, 1, 300, 300, 256),    # recurrentgemma-9b: MQA, head_dim 256
     (1, 16, 1, 77, 200, 128),     # group of 16, ragged, Sk > Sq
+    (2, 8, 1, 200, 333, 112),     # kimi-k2's head_dim 112: a group of 8, ragged, Sk > Sq
+    (1, 4, 2, 300, 300, 112),     # head_dim 112, GQA, off the tile
+    (2, 4, 1, 200, 333, 160),     # stablelm-12b's head_dim 160: MQA, ragged, Sk > Sq
+    (1, 8, 2, 130, 130, 160),     # head_dim 160, a group of 4, off the tile
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 128), (True, 17)])
@@ -96,6 +100,10 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d, dtype, causal, 
     (4, 24, 8, 4096, 128, "edges"),
     (4, 16, 1, 2048, 256, "edges"),
     (2, 40, 2, 300, 64, (300, 77)),  # a group of 20 query heads: two row groups
+    (4, 64, 8, 2048, 112, (260, 0, 1, 2048)),  # kimi-k2: head_dim 112, a group of 8
+    (4, 32, 8, 2048, 160, (1040, 0, 1, 2048)),  # stablelm-12b: head_dim 160, a group of 4
+    (4, 64, 8, 4096, 112, "edges"),
+    (4, 32, 8, 4096, 160, "edges"),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, b, hq, hkv, s, d, lengths, dtype):
@@ -299,6 +307,43 @@ def test_scans_under_grad_run_both_kernels(cuda):
         _grads_close(grads["cuda"], grads["torch"], **SCAN_TOL[torch.float32])
 
 
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "grok-1-314b"])
+def test_moe_on_the_card_matches_the_cpu(cuda, arch):
+    """moe_apply on the card against the same weights and input on the CPU,
+    in fp32 (cuBLAS and the CPU's BLAS sum in other orders: atol 2e-4, rtol
+    1e-3, the bound of the CPU tests against JAX), also under PyTorch's
+    deterministic mode, which the trainer's steps turn on; the dense
+    path's chunks, forced small, give the same values."""
+    cfg = dataclasses.replace(get_smoke_config(arch, dtype="float32"), d_model=256)
+    params = init_params(moe.moe_specs(cfg), torch.Generator().manual_seed(0))
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    want = moe.moe_apply(params, x, cfg)
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    got = moe.moe_apply(on_card, x.to(cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+    torch.use_deterministic_algorithms(True)
+    try:
+        again = moe.moe_apply(on_card, x.to(cuda), cfg)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.testing.assert_close(again.cpu(), want, atol=2e-4, rtol=1e-3)
+    xt = x.to(cuda).reshape(-1, cfg.d_model)
+    torch.testing.assert_close(moe._dense_moe(on_card, xt, cfg, chunk=7),
+                               moe._dense_moe(on_card, xt, cfg), atol=1e-6, rtol=1e-6)
+
+
+def test_moe_router_ties_go_to_the_lower_expert_on_the_card(cuda):
+    """Equal probabilities pick the lower expert index on the card too, as
+    jax.lax.top_k does (torch.topk promises no order among ties)."""
+    x = torch.rand((64, 16), device=cuda)
+    w = torch.zeros((16, 384), device=cuda)
+    _, idx = moe._route(x, w, 8)
+    assert idx.tolist() == [list(range(8))] * 64
+    w[:, 300] = w[:, 200] = 1.0  # two tied leaders, then ties among the rest
+    _, idx = moe._route(x.bfloat16(), w, 8)
+    assert idx.tolist() == [[200, 300, 0, 1, 2, 3, 4, 5]] * 64
+
+
 @pytest.mark.parametrize("arch,counts", [("falcon-mamba-7b", {"mamba": 2}),
                                          ("recurrentgemma-9b", {"rglru": 4, "flash": 2})])
 def test_recurrent_train_step_gradients_match_plain_path(cuda, arch, counts):
@@ -334,7 +379,8 @@ def test_recurrent_train_step_gradients_match_plain_path(cuda, arch, counts):
         assert float((grads_k[name] - g).abs().max()) <= 2e-3 * float(scale), name
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b", "kimi-k2-1t-a32b",
+                                  "grok-1-314b"])
 def test_model_kernel_path_matches_plain_path(cuda, arch):
     cfg = get_smoke_config(arch, dtype="float32")
     params = DecoderLM(cfg).init(torch.Generator(device=cuda).manual_seed(0))
@@ -397,6 +443,10 @@ def test_recurrent_model_kernel_path_matches_plain_path(cuda, arch, prompt, coun
     (1, 3, 1, 257, 300, 128),     # ragged past both routes' tiles, Sk > Sq
     (1, 16, 1, 300, 300, 256),    # recurrentgemma-9b's MQA at D=256, ragged
     (2, 16, 1, 130, 200, 256),    # D=256, Sk > Sq
+    (2, 8, 1, 130, 200, 112),     # kimi-k2's head_dim 112, a group of 8, Sk > Sq
+    (1, 4, 2, 257, 257, 112),     # head_dim 112, ragged past the tiles
+    (2, 4, 1, 130, 200, 160),     # stablelm-12b's head_dim 160, split by warpgroup, Sk > Sq
+    (1, 8, 2, 257, 257, 160),     # head_dim 160, ragged past the tiles
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 17), (True, 128)])

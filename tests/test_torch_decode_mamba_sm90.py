@@ -50,15 +50,21 @@ F32 = dict(atol=5e-4, rtol=1e-3)
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_route_of_every_config_head_dim(arch):
-    d = get_config(arch).head_dim
-    if d in da.HEAD_DIMS:
-        assert da._route(torch.bfloat16, d) == "mma"
-        assert da._route(torch.float32, d) == "cuda_core"
-        with pytest.raises(ValueError, match="dtype"):
-            da._route(torch.float16, d)
-    else:
-        with pytest.raises(ValueError, match="head_dim"):
-            da._route(torch.bfloat16, d)
+    """Every config's head dim goes to the mma kernel in bf16 and the
+    CUDA-core one in fp32; any other dtype, or a head dim no config has,
+    raises."""
+    cfg = get_config(arch)
+    if not any(m in ("attn", "local_attn") for m, _ in cfg.layer_kinds()):
+        assert cfg.head_dim == 0  # falcon-mamba-7b: no attention layer
+        return
+    d = cfg.hd
+    assert d in da.HEAD_DIMS
+    assert da._route(torch.bfloat16, d) == "mma"
+    assert da._route(torch.float32, d) == "cuda_core"
+    with pytest.raises(ValueError, match="dtype"):
+        da._route(torch.float16, d)
+    with pytest.raises(ValueError, match="head_dim"):
+        da._route(torch.bfloat16, 96)
 
 
 def test_plain_decode_counts_no_route():
@@ -89,7 +95,7 @@ def _mma_decode(q, k, v, length, n_split):
     """[B, Hq, D] bf16 by the bf16 decode kernel's rounding points."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    tk = 32 if d == 256 else 64  # keys a stage; warps take 16 each
+    tk = 32 if d > 128 else 64  # keys a stage; warps take 16 each
     c = LOG2E / math.sqrt(d)
     qf = q.float()
     kf = k.float().repeat_interleave(hq // hkv, dim=1)
@@ -136,7 +142,8 @@ def _decode_inputs(seed, b, hq, hkv, s, d):
 
 # recurrentgemma-9b (G=16, D=256) and llama3.2-3b (G=3, D=128), with the
 # n_split the card picks for them at B=4 (66 and 8) and others; lengths 0, 1,
-# on a split's edge (a multiple of n_split) and off it
+# on a split's edge (a multiple of n_split) and off it; kimi-k2's head_dim 112
+# (a group of 8) and stablelm-12b's 160
 @pytest.mark.parametrize("b,hq,hkv,s,d,n_split,lengths", [
     (4, 16, 1, 700, 256, 66, (0, 1, 660, 700)),
     (2, 16, 1, 300, 256, 7, (299, 35)),
@@ -144,6 +151,8 @@ def _decode_inputs(seed, b, hq, hkv, s, d):
     (2, 6, 2, 400, 128, 5, (400, 131)),
     (2, 4, 4, 200, 64, 3, (64, 199)),
     (1, 2, 1, 100, 32, 2, (97,)),
+    (2, 8, 1, 300, 112, 5, (0, 260)),
+    (2, 4, 1, 300, 160, 4, (299, 1)),
 ])
 def test_decode_rounding_points_hold_against_jax(b, hq, hkv, s, d, n_split, lengths):
     (jq, jk, jv), (q, k, v) = _decode_inputs(s + d + n_split, b, hq, hkv, s, d)

@@ -37,21 +37,23 @@ ATOL, RTOL = 2e-2, 1e-2
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_route_of_every_config_head_dim(arch):
-    d = get_config(arch).head_dim
+    """Every config's head dim (kimi-k2's 112 and stablelm-12b's 160
+    included) goes to the wgmma kernels in bf16 and the CUDA-core ones in
+    fp32, forward and backward; any other dtype raises."""
+    cfg = get_config(arch)
+    if not any(m in ("attn", "local_attn") for m, _ in cfg.layer_kinds()):
+        assert cfg.head_dim == 0  # falcon-mamba-7b: no attention layer
+        return
+    d = cfg.hd
     for mod in (fa, fb):
-        if d in mod.HEAD_DIMS:
-            assert mod._route(torch.bfloat16, d) == "wgmma"
-            assert mod._route(torch.float32, d) == "cuda_core"
-            with pytest.raises(ValueError, match="dtype"):
-                mod._route(torch.float16, d)
-        else:
-            for dtype in (torch.bfloat16, torch.float32):
-                with pytest.raises(ValueError, match="head_dim"):
-                    mod._route(dtype, d)
-    # forward and backward take every attention head dim but the two left to
-    # a later port (112: kimi-k2; 160: stablelm-12b)
-    assert (d in fa.HEAD_DIMS) == (d not in (0, 112, 160))
-    assert (d in fb.HEAD_DIMS) == (d not in (0, 112, 160))
+        assert d in mod.HEAD_DIMS
+        assert mod._route(torch.bfloat16, d) == "wgmma"
+        assert mod._route(torch.float32, d) == "cuda_core"
+        with pytest.raises(ValueError, match="dtype"):
+            mod._route(torch.float16, d)
+    for dtype in (torch.bfloat16, torch.float32):  # a head dim no config has
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._route(dtype, 96)
 
 
 def test_build_sources_cover_every_cuda_file():
@@ -84,7 +86,7 @@ def _wgmma_forward(q, k, v, *, causal, window, q_offset):
     """(out bf16, lse fp32) by the forward kernel's rounding points."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    bn = 64 if d == 256 else 128  # the kernel's key tile
+    bn = 64 if d > 128 else 128  # the kernel's key tile
     scale = 1.0 / math.sqrt(d)
     kf = k.float().repeat_interleave(hq // hkv, dim=1)
     vf = v.float().repeat_interleave(hq // hkv, dim=1)
@@ -142,7 +144,8 @@ def _close(got, want):
 
 
 # the forward shapes of tests/test_torch_cuda.py: GQA, MQA with Sk > Sq, MHA
-# off the tile, ragged, a group of 3, recurrentgemma-9b's D=256 MQA
+# off the tile, ragged, a group of 3, recurrentgemma-9b's D=256 MQA, and
+# kimi-k2's head_dim 112 and stablelm-12b's 160 with Sk > Sq
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
     (2, 4, 2, 256, 256, 64),
     (1, 8, 1, 128, 384, 64),
@@ -150,6 +153,8 @@ def _close(got, want):
     (1, 2, 2, 100, 333, 32),
     (1, 6, 2, 64, 64, 128),
     (1, 16, 1, 300, 300, 256),
+    (2, 8, 1, 100, 133, 112),
+    (1, 4, 1, 100, 133, 160),
 ])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 17)])
 def test_forward_rounding_points_hold_against_jax(b, hq, hkv, sq, sk, d, causal, window):
@@ -160,14 +165,17 @@ def test_forward_rounding_points_hold_against_jax(b, hq, hkv, sq, sk, d, causal,
     _close(out, JR.mha_reference(jq, jk, jv, **kw))
 
 
-# the backward shapes of tests/test_torch_cuda.py, and recurrentgemma-9b's
-# D=256 MQA (16/1 heads), which the wgmma route splits between warpgroups
+# the backward shapes of tests/test_torch_cuda.py, recurrentgemma-9b's D=256
+# MQA (16/1 heads), which the wgmma route splits between warpgroups, and the
+# head dims 112 and 160 (160 split too), ragged with Sk > Sq
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
     (2, 4, 2, 130, 130, 64),
     (1, 8, 1, 50, 200, 128),
     (1, 6, 2, 100, 100, 128),
     (1, 2, 2, 70, 70, 32),
     (1, 16, 1, 90, 90, 256),
+    (1, 8, 1, 70, 90, 112),
+    (1, 4, 1, 70, 90, 160),
 ])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 17)])
 def test_backward_rounding_points_hold_against_jax_vjp(b, hq, hkv, sq, sk, d, causal, window):

@@ -29,6 +29,7 @@ from repro_torch.tree import flatten_named
 DENSE = ("qwen1.5-0.5b", "llama3.2-3b", "deepseek-7b", "stablelm-12b",
          "musicgen-large", "llava-next-34b")
 RECURRENT = ("recurrentgemma-9b", "falcon-mamba-7b")
+MOE = ("kimi-k2-1t-a32b", "grok-1-314b")
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -60,7 +61,7 @@ def test_configs_match_field_for_field(arch, smoke):
     assert str(ours.torch_dtype) == f"torch.{theirs.jnp_dtype}"
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT + MOE)
 def test_param_names_shapes_and_count_match(arch):
     cfg = get_config(arch)
     specs = DecoderLM(cfg).param_specs()
@@ -70,12 +71,6 @@ def test_param_names_shapes_and_count_match(arch):
     theirs = {n: (tuple(a.shape), str(a.dtype)) for n, a in j_flatten_named(jm.abstract())}
     assert ours == theirs
     assert param_count(specs) == j_param_count(jm.param_specs())
-
-
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "grok-1-314b"])
-def test_unported_mixers_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecoderLM(get_smoke_config(arch)).param_specs()
 
 
 def test_rmsnorm_and_rope_match_jax():
@@ -117,6 +112,22 @@ def test_params_carry_across_bit_exact_bf16_included():
     model = DecoderLM(get_smoke_config("qwen1.5-0.5b"))
     params = _carry(jm, jp, model)
     assert params["blocks"][0]["l0"]["mixer"]["wq"].dtype == torch.bfloat16
+    back = params_to_numpy(params)
+    for name, arr in j_flatten_named(jp):
+        a = np.asarray(arr)
+        assert back[name].tobytes() == a.tobytes(), name
+
+
+def test_moe_params_carry_across_bit_exact():
+    """A MoE model's weights by spec name: the fp32 router beside the bf16
+    experts and the shared expert, bit for bit both ways."""
+    jm = JDecoderLM(j_get_smoke_config("kimi-k2-1t-a32b"))
+    jp = jm.init(jax.random.PRNGKey(0))
+    model = DecoderLM(get_smoke_config("kimi-k2-1t-a32b"))
+    params = _carry(jm, jp, model)
+    ffn = params["blocks"][1]["l0"]["ffn"]
+    assert ffn["w_router"].dtype == torch.float32 and ffn["w_gate"].dtype == torch.bfloat16
+    assert {"ws_gate", "ws_up", "ws_down"} <= set(ffn)
     back = params_to_numpy(params)
     for name, arr in j_flatten_named(jp):
         a = np.asarray(arr)
@@ -167,7 +178,7 @@ def _check_forward_prefill_and_decode_against_jax(arch, close=_elementwise, **ov
 LOGITS_CLOSE = {"recurrentgemma-9b": _close_to_scale}
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b", *RECURRENT])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b", *RECURRENT, *MOE])
 def test_forward_prefill_and_decode_match_jax_f32(arch):
     _check_forward_prefill_and_decode_against_jax(arch, LOGITS_CLOSE.get(arch, _elementwise))
 
@@ -200,7 +211,7 @@ def test_local_window_ring_cache_matches_jax_f32():
             np.testing.assert_allclose(_np(logits), _np(jlogits), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b", *RECURRENT])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b", *RECURRENT, *MOE])
 def test_decode_matches_forward_f32(arch):
     # the port's own check, as tests/test_models.py:33-50
     model = DecoderLM(get_smoke_config(arch, dtype="float32"))

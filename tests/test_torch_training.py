@@ -177,7 +177,7 @@ def _loss_and_grads_both(arch, standard_fan_in=False):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-0.5b", "falcon-mamba-7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "kimi-k2-1t-a32b", "grok-1-314b"])
 def test_loss_and_gradients_match_jax(arch):
     """The recurrent archs differentiate their scans through the autograd
     Functions' plain route (the reverse-scan references)."""
