@@ -35,7 +35,10 @@ It prints one JSON object per line, one line per phase:
            The backward cases (flash at llama's and recurrentgemma-9b's
            shapes, the two scans' reverse scans with h0 and dhT) hold every
            gradient within their tolerance of its largest entry and two
-           runs bitwise equal.  Head dims 112 (kimi-k2) and 160
+           runs bitwise equal; the bf16 flash backward at head_dim 256 adds
+           its head_splits and each launch's device time (prep_ms, dkdv_ms,
+           dq_ms, reduce_ms: torch.profiler), the RG-LRU one its chunk and
+           pass1_ms, pass2_ms, sum_ms.  Head dims 112 (kimi-k2) and 160
            (stablelm-12b): flash forward at their prefill shapes, backward
            at their training shapes (B=2, S=1024) and decode over a
            32768-slot cache, in bf16 and fp32
@@ -76,7 +79,10 @@ It prints one JSON object per line, one line per phase:
            attention's forward and backward launches held to their exact
            counts, all flash on "wgmma"; step ms, tokens/s, peak memory,
            losses, grad norms; then every parameter's step-0 gradient,
-           finite and nonzero in every layer
+           finite and nonzero in every layer; then torch.profiler over one
+           recurrentgemma-9b step after a warm-up step: wall, device ms, idle
+           share, launches, and the device time and share of the flash
+           backward's launches and of the RG-LRU reverse scan
   train_stablelm  stablelm-12b at published widths cut to 24 of 40 layers
            (bf16, Adafactor with bf16 momentum, no store), through the
            Trainer train.main builds, for 4 steps of 2 x 1024 tokens; flash
@@ -107,7 +113,9 @@ It prints one JSON object per line, one line per phase:
            by head dim for the attention kernels, and the numbers of its
            case; the
            flash and decode entries also name their design (one kernel a
-           dtype), decode adds its recurrentgemma-9b case, mamba its design
+           dtype), decode adds its recurrentgemma-9b case, mamba its design,
+           the flash backward at head_dim 256 and the RG-LRU reverse scan
+           their designs and per-launch times
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
 script exits non-zero without it.  It also exits non-zero, with no result,
@@ -164,12 +172,27 @@ DECODE_DESIGN = ("mma.sync m16n8k16 on a 3-stage cp.async ring, splits from the 
 MAMBA_DESIGN = ("4 lanes a channel, N/4 states each; y a tree in a lane, then a "
                 "reduce-scatter over the lanes every 16 steps; x, delta, Bm, Cm by cp.async a "
                 "tile ahead (fp32 and bf16)")
+FLASH_BWD_D256_DESIGN = (
+    "wgmma+TMA (bf16): dK/dV blocks of 64 keys, each KV group's query heads split over "
+    "head_splits blocks (from the shape and SM count; fp32 partials summed in split order by "
+    "bwd_reduce); warpgroup 0 computes S^T, warpgroup 1 dP^T over q tiles of 64 rows, P^T "
+    "and dS^T exchanged through shared memory, each warpgroup keeping dK, dV of 128 columns; "
+    "the dQ kernel on K/V tiles of 48 keys; CUDA cores (fp32)")
 SCAN_BWD_DESIGN = {
     "mamba_bwd": "reverse scan, 4 lanes a channel; each 32-step tile recomputed from the "
                  "forward's checkpoint in two 16-step halves kept in registers; dBm, dCm by a "
                  "reduce-scatter over a warp's channels, per-block partials summed in order",
-    "rglru_bwd": "reverse scan, a thread a (row, channel); 16-step groups recomputed from the "
-                 "forward's checkpoints into registers; dlog_a per row, summed in order"}
+    "rglru_bwd": "chunked reverse scan in two passes, a thread a (row, 64-step chunk, "
+                 "channel): pass 1 writes each chunk's summary from a zero carry, pass 2 folds "
+                 "the summaries to its right in order into the true carry and walks the chunk "
+                 "again from the forward's checkpoints; dlog_a per (row, chunk), summed in "
+                 "order"}
+# each launch of a call, by a substring of its kernel's name: the per-launch
+# times of the two kernels redesigned for recurrentgemma-9b's training
+FLASH_BWD_LAUNCHES = {"prep_ms": "bwd_prep", "dkdv_ms": "bwd_dkdv", "dq_ms": "bwd_dq",
+                      "reduce_ms": "bwd_reduce"}
+RGLRU_BWD_LAUNCHES = {"pass1_ms": "rglru_bwd_pass1", "pass2_ms": "rglru_bwd_pass2",
+                      "sum_ms": "sum_rows"}
 
 
 def emit(obj) -> None:
@@ -218,6 +241,28 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return float(np.median(times))
+
+    def split(self, fn, names, iters: int = 10):
+        """{key: mean device ms a call} of each kernel whose name holds the
+        substring `names[key]`, from torch.profiler over `iters` calls, each
+        after an L2 flush; None for a kernel the call did not launch."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names)
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0.0)
+            for key, sub in names.items():
+                if t > 0 and sub in e.key:
+                    out[key] = (out[key] or 0.0) + t / 1e3 / iters
+        return out
 
 
 def flash_case(torch, timer, name, *, B, Hq, Hkv, Sq, Sk, D, dtype, causal=True, window=None):
@@ -514,6 +559,13 @@ def flash_bwd_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype, window=None):
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
     if route == "wgmma" and window is None:  # the CUDA-core kernel's bf16 build, causal
         line["earlier_kernel_ms"] = timer(lambda: _cuda_core_bf16_backward(torch, *args))
+    if route == "wgmma" and D == 256:  # each launch's time, and the head splits they ran
+        line.update(timer.split(lambda: fb.flash_attention_backward(*args, **kw),
+                                FLASH_BWD_LAUNCHES))
+        line["head_splits"] = fb.last_head_splits
+        if (line["reduce_ms"] is None) != (line["head_splits"] == 1):
+            raise AssertionError(f"flash_bwd case {name}: head_splits {line['head_splits']} "
+                                 f"but reduce_ms {line['reduce_ms']}")
     emit(line)
     del lib_out, leaves
     if not line["ok"]:
@@ -521,10 +573,12 @@ def flash_bwd_case(torch, timer, name, *, B, Hq, Hkv, S, D, dtype, window=None):
     return line
 
 
-def _scan_bwd_line(kernel, name, dtype, shape, timer, run, plain, nbytes, flops, exps):
+def _scan_bwd_line(kernel, name, dtype, shape, timer, run, plain, nbytes, flops, exps,
+                   **extra):
     """The kernel line of a scan's backward case: every gradient against the
     plain backward's (the scans' tolerance, relative to each gradient's
-    largest entry), two runs bitwise equal, no library call."""
+    largest entry), two runs bitwise equal, no library call; `extra` keys
+    added to the line."""
     got, again, want = run(), run(), plain()
     errs, rel, ok = _grad_errs(got, want, *SCAN_TOL[dtype])
     bitwise = all(a.equal(b) for a, b in zip(got, again))
@@ -536,7 +590,7 @@ def _scan_bwd_line(kernel, name, dtype, shape, timer, run, plain, nbytes, flops,
             "bitwise_repeat": bitwise, "ok": ok and bitwise, "kernel_ms": timer(run),
             "plain_ms": timer(plain, iters=3), "library_ms": None, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "flops": flops, "exps": exps,
-            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, **extra}
     emit(line)
     if not line["ok"]:
         raise AssertionError(f"{kernel} case {name}: {errs} (rel {rel}), bitwise {bitwise}")
@@ -596,7 +650,7 @@ def rglru_bwd_case(torch, timer, name, *, B, S, D, dtype):
     return _scan_bwd_line(
         "rglru_scan_bwd", name, dtype, {"B": B, "S": S, "D": D, "h0": True, "dhT": True}, timer,
         run, lambda: ref.rglru_backward_reference(x, r, i, log_a, h0, dy, dhT), nbytes, flops,
-        0.0)
+        0.0, chunk=rs.BWD_CHUNK, **timer.split(run, RGLRU_BWD_LAUNCHES))
 
 
 def topk_case(torch, timer, name, *, n, k, dtype="float32"):
@@ -1103,10 +1157,10 @@ def phase_train(torch):
     return launches
 
 
-def _train_batch(torch, vocab):
+def _train_batch(torch, vocab, batch=TRAIN_BATCH):
     from repro_torch.data import DataConfig, SyntheticPipeline
 
-    dcfg = DataConfig(vocab_size=vocab, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    dcfg = DataConfig(vocab_size=vocab, global_batch=batch, seq_len=TRAIN_SEQ)
     return {k: torch.from_numpy(v).cuda() for k, v in SyntheticPipeline(dcfg).batch_at(0).items()}
 
 
@@ -1143,9 +1197,12 @@ def _train_grad_norms(torch):
     torch.cuda.empty_cache()
 
 
-def _train_profile(torch):
-    """Where a training step's time goes: one AdamW step of the published
-    llama3.2-3b under torch.profiler, after a warm-up step."""
+def _train_profile(torch, arch="llama3.2-3b", opt=None, batch=TRAIN_BATCH, phase="train",
+                   shares=None):
+    """Where a training step's time goes: one step of the published `arch`
+    (AdamW unless `opt` says otherwise) on `batch` x TRAIN_SEQ tokens under
+    torch.profiler, after a warm-up step.  `shares`: {label: substrings of
+    kernel names}, each label's share of the step's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1153,11 +1210,11 @@ def _train_profile(torch):
     from repro_torch.training import OptConfig, TrainConfig, init_train_state, make_train_step
     from repro_torch.training.trainer import deterministic_cuda
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
     model = DecoderLM(cfg)
-    tcfg = TrainConfig(opt=OptConfig(lr=1e-3))
+    tcfg = TrainConfig(opt=opt or OptConfig(lr=1e-3))
     state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), tcfg)
-    batch = _train_batch(torch, cfg.vocab_size)
+    batch = _train_batch(torch, cfg.vocab_size, batch)
     step = make_train_step(model, tcfg)
     with deterministic_cuda():  # as the trainer runs its steps
         state, metrics = step(state, batch)
@@ -1177,11 +1234,16 @@ def _train_profile(torch):
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
     device_ms = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "train", "what": "profile of one step", "arch": "llama3.2-3b",
-          "wall_ms": wall * 1e3, "host_enqueue_ms": enqueue * 1e3, "device_ms": device_ms,
-          "device_idle_share": max(0.0, 1 - device_ms / (wall * 1e3)),
-          "kernel_launches": launches, "top_device_ms": [[k[:60], v] for k, v in top]})
-    del state, step
+    line = {"phase": phase, "what": "profile of one step", "arch": arch,
+            "optimizer": tcfg.opt.kind, "global_batch": batch["tokens"].shape[0],
+            "wall_ms": wall * 1e3, "host_enqueue_ms": enqueue * 1e3, "device_ms": device_ms,
+            "device_idle_share": max(0.0, 1 - device_ms / (wall * 1e3)),
+            "kernel_launches": launches, "top_device_ms": [[k[:60], v] for k, v in top]}
+    for label, subs in (shares or {}).items():
+        ms = sum(v for k, v in dev.items() if any(sub in k for sub in subs))
+        line[f"{label}_device_ms"], line[f"{label}_share"] = ms, ms / device_ms
+    emit(line)
+    del state, step, batch
     torch.cuda.empty_cache()
 
 
@@ -1231,6 +1293,16 @@ def phase_train_recurrent(torch):
         del out
         torch.cuda.empty_cache()
         _step0_gradients(torch, arch, batch)
+    # where recurrentgemma-9b's step goes, and the share of the two kernels
+    # redesigned for it (the flash backward's launches, the RG-LRU reverse scan)
+    from repro_torch.training import OptConfig
+
+    arch, _, batch, _ = TRAIN_RECURRENT[1]
+    _train_profile(torch, arch, OptConfig(kind="adafactor", lr=1e-3, momentum_dtype="bfloat16"),
+                   batch, "train_recurrent",
+                   {"flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
+                    "flash_bwd_dkdv_dq": ("bwd_dkdv", "bwd_dq"),
+                    "rglru_bwd": ("rglru_bwd_pass", "sum_rows")})
     return total
 
 
@@ -1745,6 +1817,9 @@ def main(argv=None) -> int:
         if key in ("flash", "decode"):  # every head dim's launches in the serve phase
             kernels[-1]["launches_by_head_dim"] = {
                 str(get_config(arch).hd): n[name] for arch, n in by_arch.items() if n[name]}
+        if key == "flash_bwd_d256":  # redesigned: its head splits and each launch's time
+            kernels[-1].update(design=FLASH_BWD_D256_DESIGN, head_splits=c["head_splits"],
+                               **{k: c[k] for k in FLASH_BWD_LAUNCHES})
         if key == "flash_bwd_d112":
             kernels[-1]["note"] = ("kimi-k2 trains on no main path: its launches are "
                                    "train_parity's, at its widths with 8 experts")
@@ -1762,10 +1837,12 @@ def main(argv=None) -> int:
             kernels[-1]["design"] = MAMBA_DESIGN
         if key in SCAN_BWD_DESIGN:  # also checked at train_recurrent's own shape
             tr = cases[f"{key}_train"]
-            kernels[-1].update(design=SCAN_BWD_DESIGN[key], at_train_shape={
+            split = ("chunk", *RGLRU_BWD_LAUNCHES) if key == "rglru_bwd" else ()
+            kernels[-1].update(design=SCAN_BWD_DESIGN[key], **{k: c[k] for k in split},
+                               at_train_shape={
                 k: tr[k] for k in ("case", "shape", "max_err", "max_err_rel_to_scale",
                                    "bitwise_repeat", "kernel_ms", "plain_ms", "bound_ms",
-                                   "bound_by")})
+                                   "bound_by", *split)})
     one = cases["fletcher32"]  # checked in its kernel case; the main path never makes the call
     kernels[-1]["one_segment"] = {"name": "fletcher32", "case": one["case"],
                                   "max_abs_err": one["max_err"], "ms": one["kernel_ms"],

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Device time of kernels of the checkout at `--root`, by named case, on
+inputs made as `chip_smoke.py`'s kernel cases make them:
+
+  scan_forwards  the serve path's scan forwards: `mamba_scan` at
+                 falcon-mamba-7b's prefill (bf16), and fp32 with h0 at a
+                 ragged S; `rglru_scan` at recurrentgemma-9b's (bf16);
+  train_kernels  recurrentgemma-9b's two training kernels, whole and launch
+                 by launch: the flash attention backward at head_dim 256
+                 (bf16, MQA 16/1 heads, window 2048: B=2, S=1024, the shape
+                 `train_recurrent` gives it, and B=4, S=3072) and the RG-LRU
+                 reverse scan (D=4096 with h0 and dhT: B=2, S=1024 in bf16,
+                 and B=4, S=3072 in bf16 and fp32); and SDPA's causal
+                 backward at the first shape, the flash backward's yardstick.
+
+    python3 scripts/time_kernels.py --root path/to/checkout --case train_kernels
+
+The timer is `chip_smoke.Timer` of this script's own checkout, whatever
+`--root` names: each number is the median of 10 calls, each after a 256 MB
+L2 flush, timed with CUDA events; `--reps` such medians a shape, in one
+process.  The split by launch is `Timer.split`: torch.profiler's device
+time of each kernel over 10 more calls, divided by the calls, for the
+kernel names of `LAUNCHES` that the call ran (they name both the one-pass
+RG-LRU reverse scan and the two-pass one, and the flash backward's launches
+with and without head splits, so two trees' splits can be compared).  To compare two
+trees, run it on each in turns (A, B, B, A) on one card.  The training
+kernels' cases also give `host_ms`, the median host time of enqueuing one
+call (the queue empty before it): where it outlasts the flush, the events
+count the difference.  Needs a CUDA card; prints one JSON line with the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parents[1]
+CASES = ("scan_forwards", "train_kernels")
+# each kernel of a call whose device time is split out, by a substring of its name
+LAUNCHES = {"flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
+            "rglru_bwd": ("rglru_scan_bwd_kernel", "rglru_bwd_pass1", "rglru_bwd_pass2",
+                          "sum_rows")}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--case", choices=CASES, required=True)
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(1, str(HERE))
+    import torch
+
+    from chip_smoke import Timer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import rglru_scan as rs
+
+    if not Path(ms.__file__).resolve().is_relative_to(root):
+        raise SystemExit(f"imported {ms.__file__}, not the checkout at {root}")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA card")
+    timer = Timer(torch)
+
+    def host_ms(run, iters=10):
+        ts = []
+        for _ in range(iters):
+            timer.flush.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return float(np.median(ts))
+
+    def times(run, launches=None):
+        ms_ = [timer(run) for _ in range(args.reps)]
+        if launches is None:
+            return ms_
+        out = {"ms": ms_, "host_ms": host_ms(run)}
+        if launches in LAUNCHES:
+            split = timer.split(run, {name: name for name in LAUNCHES[launches]})
+            out["split_ms"] = {k: v for k, v in split.items() if v is not None}
+        return out
+
+    def mamba(B, S, Din, N, dt, with_h0):
+        g = torch.Generator(device="cuda").manual_seed(S + Din + N)
+        rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+        x, delta = rn(B, S, Din).to(dt), torch.nn.functional.softplus(rn(B, S, Din))
+        A = -torch.exp(rn(Din, N) * 0.5)
+        Bm, Cm, D = rn(B, S, N).to(dt), rn(B, S, N).to(dt), rn(Din)
+        h0 = rn(B, Din, N) if with_h0 else None
+        return times(lambda: ms.mamba_scan(x, delta, A, Bm, Cm, D, h0))
+
+    def rglru_inputs(B, S, D, dt, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+        x = rn(B, S, D).to(dt)
+        r, i = torch.sigmoid(rn(B, S, D)).to(dt), torch.sigmoid(rn(B, S, D)).to(dt)
+        return rn, x, r, i, -torch.exp(rn(D) * 0.3) * 0.1
+
+    def rglru(B, S, D, dt):
+        _, x, r, i, log_a = rglru_inputs(B, S, D, dt, S + D)
+        return times(lambda: rs.rglru_scan(x, r, i, log_a, None))
+
+    def flash_bwd(B, S):
+        g = torch.Generator(device="cuda").manual_seed(S * 3 + 256)
+        q, k, v, do = (torch.randn((B, h, S, 256), generator=g, device="cuda").to(torch.bfloat16)
+                       for h in (16, 1, 1, 16))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, causal=True, window=2048)
+        return times(lambda: fb.flash_attention_backward(q, k, v, o, lse, do, causal=True,
+                                                         window=2048), "flash_bwd")
+
+    def sdpa_bwd(B, S):  # the window of 2048 cuts no key at S <= 2048: causal
+        g = torch.Generator(device="cuda").manual_seed(S * 3 + 256)
+        q, k, v, do = (torch.randn((B, h, S, 256), generator=g, device="cuda").to(torch.bfloat16)
+                       for h in (16, 1, 1, 16))
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                               enable_gqa=True)
+        return times(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), "sdpa")
+
+    def rglru_bwd(B, S, dt):
+        rn, x, r, i, log_a = rglru_inputs(B, S, 4096, dt, S + 4096 + 1)
+        h0, dy, dhT = rn(B, 4096), rn(B, S, 4096).to(dt), rn(B, 4096)
+        ckpt = rs.rglru_scan(x, r, i, log_a, h0, checkpoints=True)[2]
+        return times(lambda: rs.rglru_scan_backward(x, r, i, log_a, h0, dy, dhT, ckpt),
+                     "rglru_bwd")
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    out = {"root": str(root), "case": args.case,
+           "card": card.strip().splitlines()[0] if card.strip() else None}
+    if args.case == "scan_forwards":
+        out.update(mamba_bf16_B4_S1024_ms=mamba(4, 1024, 8192, 16, torch.bfloat16, False),
+                   mamba_fp32_B4_S1000_h0_ms=mamba(4, 1000, 8192, 16, torch.float32, True),
+                   rglru_bf16_B4_S3072_ms=rglru(4, 3072, 4096, torch.bfloat16))
+    else:
+        out.update(flash_bwd_d256_B2_S1024=flash_bwd(2, 1024),
+                   flash_bwd_d256_B4_S3072=flash_bwd(4, 3072),
+                   sdpa_bwd_d256_B2_S1024=sdpa_bwd(2, 1024))
+        torch.cuda.empty_cache()
+        out.update(rglru_bwd_bf16_B2_S1024=rglru_bwd(2, 1024, torch.bfloat16),
+                   rglru_bwd_bf16_B4_S3072=rglru_bwd(4, 3072, torch.bfloat16),
+                   rglru_bwd_fp32_B4_S3072=rglru_bwd(4, 3072, torch.float32))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,7 +17,7 @@
 // that reduce over D stop at D, and the columns past D of a product's output
 // are computed and never stored.  An MN-major operand starts on a block.
 //
-// wgmma products are m64nNk16 (N = 32, 64, 128, 192, 256), bf16 inputs, fp32
+// wgmma products are m64nNk16 (N = 32, 48, 64, 128, 192, 256), bf16 inputs, fp32
 // accumulators in registers.
 // The accumulator of a warpgroup's 64 rows: thread t (warp w = t / 32, lane
 // l) holds rows r0 = 16 w + l / 4 and r0 + 8, and d[4 j + {0, 1}] are row r0,
@@ -128,6 +128,21 @@ __device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t da, uint64_t db,
       "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[24], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
 

@@ -22,16 +22,22 @@ shape (B=4, S=1024, causal, bf16) it does 2.5x the forward's 25.8 GFLOP,
 about 65 us at 989 TFLOP/s (see the sources and PERF.md).  Head dims 32, 64,
 112, 128, 160 and 256 on both routes; at 160 (stablelm-12b) and 256
 (recurrentgemma-9b) the wgmma route splits D between its two consumer
-warpgroups.
+warpgroups, and at 256 they also split the recomputed products S^T and dP^T
+between them.  Where a KV head's blocks are too few to fill the card (MQA at
+a small batch), the wgmma route's dK/dV kernel splits each KV group's query
+heads over ``head_splits`` blocks, whose fp32 partials a fourth kernel sums
+in a fixed order.
 
 ``launches`` counts backward calls (one per backward: the C entry point
-issues the three kernels), ``launches_by_route`` the same calls by route;
-the plain path never adds to either.
+issues the three kernels, four with head splits), ``launches_by_route`` the
+same calls by route; the plain path never adds to either.
+``last_head_splits`` is the HS of the last wgmma call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -46,6 +52,41 @@ SQ_PAD = 128  # the wgmma route's scratch pads each head's rows to a multiple of
 
 launches = 0
 launches_by_route = dict.fromkeys(ROUTES, 0)
+last_head_splits = None
+
+
+def dkdv_keys(head_dim: int) -> int:
+    """Keys a block of the wgmma route's dK/dV kernel takes: 64 where its
+    warpgroups split D (head dims past 128), 128 otherwise.  The same rule
+    as ``DkDv<D>::KEYS`` in ``csrc/flash_attention_bwd_sm90.cu``, which
+    points back here: the two change together.  Only the planner reads it,
+    so a mismatch would change HS, never the scratch the kernel writes."""
+    return 64 if head_dim > 128 else 128
+
+
+def head_splits(b: int, hq: int, hkv: int, sk: int, head_dim: int, sms: int) -> int:
+    """HS: the runs of query heads into which the wgmma route's dK/dV kernel
+    splits each KV group, one block each.  The smallest divisor of the group
+    size G = hq / hkv that gives the grid (b * hkv * HS blocks by key tiles)
+    at least one block per SM; 1 where the grid already has that many, G
+    where no divisor reaches it.  It follows from the shape and the card's
+    SM count alone, never from the data or a timing, so a shape's bits do
+    not change from call to call.  With HS > 1 the kernel takes fp32 scratch
+    of 2 * HS * b * hkv * sk * head_dim floats (``partials_numel``)."""
+    g = hq // hkv
+    blocks = b * hkv * -(-sk // dkdv_keys(head_dim))
+    return next((hs for hs in range(1, g + 1) if g % hs == 0 and blocks * hs >= sms), g)
+
+
+def partials_numel(hs: int, b: int, hkv: int, sk: int, head_dim: int) -> int:
+    """fp32 elements of the head splits' dK and dV partials, [2, HS, B, Hkv,
+    Sk, D]; 0 where HS = 1 (the kernel then writes bf16 directly)."""
+    return 2 * hs * b * hkv * sk * head_dim if hs > 1 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _route(dtype: torch.dtype, head_dim: int) -> str:
@@ -65,7 +106,7 @@ def _fn(route: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if route == "wgmma":
         fn = _build.load("flash_attention_bwd_sm90").repro_flash_attention_bwd_sm90
-        types = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, i, p]
+        types = [p] * 11 + [i] * 7 + [ctypes.c_float, i, i, i, p]
     else:
         fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
         types = [p] * 10 + [i] * 7 + [ctypes.c_float, i, i, i, p]
@@ -133,25 +174,30 @@ def flash_attention_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
+    outs, dims = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr()), (b, hq, hkv, sq, sk, d)
     if route == "wgmma":  # (lse * log2 e, D) of each row, the rows padded
         scratch = torch.empty(2 * b * hq * (-(-sq // SQ_PAD) * SQ_PAD), dtype=torch.float32,
                               device=q.device)
-        dtype_code = ()
+        hs = head_splits(b, hq, hkv, sk, d, _sm_count(q.device.index))
+        n = partials_numel(hs, b, hkv, sk, d)
+        part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+        args = (scratch.data_ptr(), part.data_ptr() if n else None, *outs, *dims, hs)
     else:  # D of each row; the CUDA-core kernel's dtype code 0 = float32
         scratch = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-        dtype_code = (0,)
+        args = (scratch.data_ptr(), *outs, 0, *dims)
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fn(route)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *dtype_code, b, hq, hkv, sq, sk, d, scale, int(bool(causal)), int(window or 0),
-            int(q_offset), stream)
+            do.data_ptr(), *args, scale, int(bool(causal)), int(window or 0), int(q_offset),
+            stream)
     if err:
         raise RuntimeError(f"flash_attention_backward: {route} kernel launch failed with "
                            f"cudaError {err}")
-    global launches
+    global launches, last_head_splits
     launches += 1
     launches_by_route[route] += 1
+    if route == "wgmma":
+        last_head_splits = hs
     return dq, dk, dv

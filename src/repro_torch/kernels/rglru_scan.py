@@ -18,11 +18,16 @@ whose forward also writes the fp32 carry entering every ``CHUNK`` steps and
 whose backward is the hand-written reverse scan ``rglru_scan_backward``
 (``repro_rglru_scan_bwd`` in the same source; the JAX package has no
 backward kernel: it differentiates its XLA reference).  Its plain version is
-``ref.rglru_backward_reference``, the same formulas.
+``ref.rglru_backward_reference``, the same formulas.  The reverse scan
+splits the sequence into chunks of ``BWD_CHUNK`` steps that run in
+parallel: a first pass writes each chunk's summary (the a g it reaches from
+a zero carry, and the product of its decays), a second folds the summaries
+to its right into the chunk's true carry and walks it again, writing the
+gradients (see the source).
 
 ``launches`` counts forward kernel launches, ``bwd_launches`` backward calls
-(one per call: the C entry point issues the reverse scan and the fixed-order
-sum of dlog_a over rows); the plain path never adds to either.
+(one per call: the C entry point issues the two passes and the fixed-order
+sum of dlog_a over rows and chunks); the plain path never adds to either.
 """
 
 from __future__ import annotations
@@ -36,6 +41,12 @@ from . import _build
 from .ref import rglru_backward_reference, rglru_reference
 
 CHUNK = 16  # steps between the forward's checkpoints: the steps a thread loads at once
+# steps of the reverse scan's chunks, a multiple of CHUNK: recurrentgemma-9b's
+# training shape (B=2, S=1024, D=4096) gets 16 chunks a row, a thread a
+# channel, 131072 threads (~31 warps an SM, 16 of them resident at once).
+# The kernel's own constant (BWD_L in the source); the wrapper sizes its
+# scratch from this one, and the library is refused if the two differ
+BWD_CHUNK = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -44,10 +55,13 @@ bwd_launches = 0
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rglru_scan")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn, types in ((lib.repro_rglru_scan, [p] * 8 + [i] * 4 + [f, p]),
-                      (lib.repro_rglru_scan_bwd, [p] * 13 + [i] * 4 + [f, p])):
-        if fn.argtypes is None:
+    if lib.repro_rglru_scan_bwd.argtypes is None:
+        if lib.repro_rglru_scan_bwd_chunk() != BWD_CHUNK:
+            raise RuntimeError(f"rglru_scan: the library's backward chunk is "
+                               f"{lib.repro_rglru_scan_bwd_chunk()}, BWD_CHUNK {BWD_CHUNK}")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for fn, types in ((lib.repro_rglru_scan, [p] * 8 + [i] * 4 + [f, p]),
+                          (lib.repro_rglru_scan_bwd, [p] * 13 + [i] * 4 + [f, p])):
             fn.argtypes = types
             fn.restype = ctypes.c_int
     return lib
@@ -66,6 +80,12 @@ def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype,
 
 def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
+
+
+def bwd_scratch_numel(b: int, s: int, d: int) -> int:
+    """fp32 elements of the reverse scan's scratch: the dlog_a partials and
+    the two summaries of every (row, chunk), [3, B, ceil(S / BWD_CHUNK), D]."""
+    return 3 * b * -(-s // BWD_CHUNK) * d
 
 
 def _check_inputs(x, r, i, log_a, h0):
@@ -141,8 +161,9 @@ def rglru_scan_backward(
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel, or
     raise when the kernel does not take them: nothing falls back.  Two calls
-    give the same bits: dlog_a's sum over rows is per-row partials summed in
-    a fixed order, with no atomics.
+    give the same bits: the chunks' carries fold in a fixed order, and
+    dlog_a's sum is per-(row, chunk) partials summed in a fixed order, with
+    no atomics.
     """
     if x.device.type == "cpu":
         return rglru_backward_reference(x, r, i, log_a, h0, dy, dhT, c=c)
@@ -155,15 +176,16 @@ def rglru_scan_backward(
     _check("ckpt", ckpt, x.device, torch.float32, (b, -(-s // CHUNK), d))
     dx, dr, di = torch.empty_like(x), torch.empty_like(r), torch.empty_like(i)
     dla = torch.empty_like(log_a)
-    dh0, part = (torch.empty((b, d), dtype=torch.float32, device=x.device) for _ in range(2))
+    dh0 = torch.empty((b, d), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return dx, dr, di, dla, dh0
+    scratch = torch.empty(bwd_scratch_numel(b, s, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().repro_rglru_scan_bwd(
             *(t.data_ptr() for t in (x, r, i, log_a, dy)), _ptr(dhT), ckpt.data_ptr(),
-            *(t.data_ptr() for t in (dx, dr, di, dla, dh0, part)), _DTYPE_CODES[x.dtype], b, s,
-            d, float(c), stream)
+            *(t.data_ptr() for t in (dx, dr, di, dla, dh0, scratch)), _DTYPE_CODES[x.dtype], b,
+            s, d, float(c), stream)
     if err:
         raise RuntimeError(f"rglru_scan_backward: kernel launch failed with cudaError {err}")
     global bwd_launches

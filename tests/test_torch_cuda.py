@@ -15,7 +15,10 @@ train step.  This file imports no JAX: the machine with the card has none.
 """
 
 import dataclasses
+import hashlib
 import os
+
+import numpy as np
 
 import pytest
 import torch
@@ -258,7 +261,11 @@ def test_mamba_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, s, din
     _grads_close(got, want, **SCAN_TOL[dtype])
 
 
-@pytest.mark.parametrize("b,s,d", [(2, 777, 512), (1, 64, 128), (4, 3072, 4096), (3, 5, 70)])
+# S off the reverse scan's 64-step chunk (777, 5, 40, 1, 45) and on it (64,
+# 1024, 3072); recurrentgemma-9b's training shape (2, 1024, 4096); D off the
+# 64-thread block (70, 33)
+@pytest.mark.parametrize("b,s,d", [(2, 777, 512), (1, 64, 128), (4, 3072, 4096), (3, 5, 70),
+                                   (2, 1024, 4096), (1, 40, 256), (2, 1, 64), (2, 45, 33)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_rglru_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, s, d, dtype, with_h0):
@@ -469,6 +476,69 @@ def test_flash_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, hq, hk
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and torch.equal(g, a)
         torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype], rtol=1e-2)
+
+
+# recurrentgemma-9b's MQA (16/1 heads) at D=256 where the dK/dV kernel splits
+# the group's heads over blocks: its training shape (HS = 8 on 132 SMs), with
+# and without its window; ragged S; Sk > Sq with a window; a short window
+@pytest.mark.parametrize("b,sq,sk,window", [(2, 1024, 1024, None), (2, 1024, 1024, 2048),
+                                            (1, 300, 300, None), (2, 130, 400, 128),
+                                            (1, 300, 300, 17)])
+def test_flash_backward_d256_head_splits_match_plain_and_repeat_bitwise(cuda, b, sq, sk, window):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hs = fb.head_splits(b, 16, 1, sk, 256, sms)
+    assert hs > 1
+    gen = torch.Generator(device=cuda).manual_seed(sq * sk + 256)
+    q, do = (_randn(gen, (b, 16, sq, 256), torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, (b, 1, sk, 256), torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, window=window, q_offset=sk - sq)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    got = fb.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    again = fb.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    assert fb.last_head_splits == hs  # the split the planner chose is the one launched
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = ref.flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    _grads_close(got, want, **SCAN_TOL[torch.bfloat16])  # 2e-2 of each gradient's scale
+
+
+def _bwd_digest(b, hq, hkv, s, d, window):
+    """sha256 of the bf16 (dq, dk, dv) bytes of the wgmma backward on inputs
+    made by numpy from a seed (causal, Sq = Sk = s), through the forward's o
+    and lse."""
+    rng = np.random.default_rng(b * hq * s + d)
+    t = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", torch.bfloat16)
+         for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d))]
+    q, k, v, do = t
+    kw = dict(causal=True, window=window)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    grads = fb.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    h = hashlib.sha256()
+    for g in grads:
+        h.update(g.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# Where the planner gives HS = 1 (the grid already fills 132 SMs) the dK/dV
+# kernel keeps the arithmetic of the design without head splits, whose
+# outputs on these inputs hashed to these digests on an NVIDIA H100 80GB
+# HBM3: llama3.2-3b's (D=128) and stablelm-12b's (D=160) training shapes,
+# and MHA at D=64 with a window
+BITS_AT_ONE_SPLIT = {
+    (4, 24, 8, 1024, 128, None): "588927578f8858f40d842c434d20e85095e74ce05a528304a90d2b27154f688c",
+    (2, 32, 8, 1024, 160, None): "0a436227f5912649016ea39031783cd236575e09efaf120dbbd6bd898ecc7334",
+    (2, 8, 8, 1280, 64, 200): "3f3f8e6bcacb8716f5f4e1892aaa354f6a5a8ff522f76da9846101b7b0e10240",
+}
+
+
+@pytest.mark.parametrize("shape", list(BITS_AT_ONE_SPLIT))
+def test_flash_backward_bits_unchanged_at_one_head_split(cuda, shape):
+    b, hq, hkv, s, d, _ = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the digests are an H100 SXM's (132 SMs); this card has {sms}")
+    assert fb.head_splits(b, hq, hkv, s, d, sms) == 1
+    assert _bwd_digest(*shape) == BITS_AT_ONE_SPLIT[shape]
+    assert fb.last_head_splits == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
