@@ -167,6 +167,12 @@ TRAIN_RECURRENT_STEPS = 4
 TRAIN_STABLELM = ("stablelm-12b", 40, 24, 2)
 TRAIN_STABLELM_STEPS = 4
 FLASH_DESIGN = "wgmma+TMA (bf16); CUDA cores (fp32)"  # the flash kernels: one a dtype
+FLASH_FWD_DESIGN = (
+    "wgmma+TMA (bf16): a persistent grid of min(tiles, SMs) blocks walking the work tiles "
+    "longest first; K and V on barriers of their own, 2-4 stages; each consumer warpgroup "
+    "issues Q K_j^T with P_{j-1} V_{j-1} and runs the softmax of S_j under P V, the two "
+    "warpgroups taking turns at the tensor cores (named barriers); masks only on edge tiles "
+    "(a compile-time path); P V at the true width; CUDA cores (fp32)")
 DECODE_DESIGN = ("mma.sync m16n8k16 on a 3-stage cp.async ring, splits from the SM count "
                  "(bf16); CUDA cores, 256-key chunks of the cache (fp32)")
 MAMBA_DESIGN = ("4 lanes a channel, N/4 states each; y a tree in a lane, then a "
@@ -226,6 +232,7 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.flush_kernels = set()  # the flush's kernel names (Timer.device)
 
     def __call__(self, fn, iters: int = 10) -> float:
         torch = self.torch
@@ -242,10 +249,10 @@ class Timer:
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
-    def split(self, fn, names, iters: int = 10):
-        """{key: mean device ms a call} of each kernel whose name holds the
-        substring `names[key]`, from torch.profiler over `iters` calls, each
-        after an L2 flush; None for a kernel the call did not launch."""
+    def _profile(self, fn, iters: int, counts: bool = False):
+        """{kernel name: mean device ms a call} over `iters` calls of `fn`,
+        each after an L2 flush (torch.profiler); with `counts`, {kernel name:
+        (mean device ms a call, launches recorded)}."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
@@ -256,16 +263,45 @@ class Timer:
                 self.flush.zero_()
                 fn()
             torch.cuda.synchronize()
+        return {e.key: (e.self_device_time_total / 1e3 / iters, e.count) if counts else
+                e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+                if getattr(e, "self_device_time_total", 0.0) > 0}
+
+    def split(self, fn, names, iters: int = 10):
+        """{key: mean device ms a call} of each kernel whose name holds the
+        substring `names[key]`, from torch.profiler over `iters` calls, each
+        after an L2 flush; None for a kernel the call did not launch."""
         out = dict.fromkeys(names)
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", 0.0)
+        for kernel, t in self._profile(fn, iters).items():
             for key, sub in names.items():
-                if t > 0 and sub in e.key:
-                    out[key] = (out[key] or 0.0) + t / 1e3 / iters
+                if sub in kernel:
+                    out[key] = (out[key] or 0.0) + t
         return out
 
+    def device(self, fn, iters: int = 10) -> float:
+        """Mean device ms a call of every kernel `fn` launches (torch.profiler),
+        the flush's own kernel left out: a call's time on the card alone,
+        whatever its host time.  The profiler at times drops a session's
+        kernels or keeps another's, so a trace counts only when each of its
+        kernels was recorded a whole number of times a call (the flush's:
+        once), and is taken again otherwise."""
+        def whole(trace, n):
+            return bool(trace) and all(c > 0 and c % n == 0 for _, c in trace.values())
 
-def flash_case(torch, timer, name, *, B, Hq, Hkv, Sq, Sk, D, dtype, causal=True, window=None):
+        for _ in range(5):
+            if not self.flush_kernels:
+                flush = self._profile(lambda: None, 2, counts=True)
+                if whole(flush, 2) and all(c == 2 for _, c in flush.values()):
+                    self.flush_kernels = set(flush)
+                continue
+            trace = {k: v for k, v in self._profile(fn, iters, counts=True).items()
+                     if k not in self.flush_kernels}
+            if whole(trace, iters):
+                return sum(t for t, _ in trace.values())
+        raise RuntimeError("torch.profiler gave no whole trace of the flush or of the call")
+
+def flash_case(torch, timer, name, *, B, Hq, Hkv, Sq, Sk, D, dtype, causal=True, window=None,
+               device_ms=False):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -313,6 +349,9 @@ def flash_case(torch, timer, name, *, B, Hq, Hkv, Sq, Sk, D, dtype, causal=True,
             "library_ms": timer(lib),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "flops": 4.0 * B * Hq * D * pairs}
+    if device_ms:  # the same two calls' time on the card alone (torch.profiler)
+        line["kernel_device_ms"] = timer.device(lambda: fa.flash_attention(q, k, v, **kw))
+        line["library_device_ms"] = timer.device(lib)
     if route == "wgmma":
         line["earlier_kernel_ms"] = timer(lambda: _cuda_core_bf16_forward(torch, q, k, v, out, kw))
     emit(line)
@@ -739,7 +778,7 @@ def phase_kernels(torch):
     timer = Timer(torch)
     lines = {}
     lines["flash"] = flash_case(torch, timer, "llama3.2-3b prefill", Sq=1024, Sk=1024,
-                                dtype="bfloat16", **LLAMA)
+                                dtype="bfloat16", device_ms=True, **LLAMA)
     flash_case(torch, timer, "llama3.2-3b prefill fp32", Sq=1024, Sk=1024, dtype="float32",
                **LLAMA)
     flash_case(torch, timer, "window 128", Sq=1024, Sk=1024, dtype="bfloat16", window=128,
@@ -786,13 +825,14 @@ def phase_kernels(torch):
             ("d112", "kimi-k2-1t-a32b", KIMI, 256, [257, 288, 270, 263])):
         d = widths["D"]
         lines[f"flash_{key}"] = flash_case(torch, timer, f"{name} prefill (D={d}), S 1024",
-                                           Sq=1024, Sk=1024, dtype="bfloat16", **widths)
+                                           Sq=1024, Sk=1024, dtype="bfloat16", device_ms=True,
+                                           **widths)
         flash_case(torch, timer, f"{name} prefill fp32 (D={d}), S 1024", Sq=1024, Sk=1024,
                    dtype="float32", **widths)
         if prompt != 1024:  # the serve phase's own prompt
             lines[f"flash_{key}_serve"] = flash_case(
                 torch, timer, f"{name} prefill (D={d}), S {prompt}", Sq=prompt, Sk=prompt,
-                dtype="bfloat16", **widths)
+                dtype="bfloat16", device_ms=True, **widths)
         lines[f"decode_{key}"] = decode_case(torch, timer, f"{name} decode (D={d}), cache 32768",
                                              S=32768, dtype="bfloat16", lengths=lengths, **widths)
         decode_case(torch, timer, f"{name} decode fp32 (D={d}), cache 32768", S=32768,
@@ -1812,8 +1852,13 @@ def main(argv=None) -> int:
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "checked": True})
         if key.startswith(("flash", "decode")):  # the bf16 kernel's
-            kernels[-1].update(design=DECODE_DESIGN if key.startswith("decode") else FLASH_DESIGN,
+            design = (DECODE_DESIGN if key.startswith("decode") else FLASH_DESIGN
+                      if key.startswith("flash_bwd") else FLASH_FWD_DESIGN)
+            kernels[-1].update(design=design,
                                fp32_source=f"src/repro_torch/kernels/csrc/{source[:-5]}.cu")
+        if "kernel_device_ms" in c:  # the same calls' time on the card alone
+            kernels[-1].update(device_ms=c["kernel_device_ms"],
+                               library_device_ms=c["library_device_ms"])
         if key in ("flash", "decode"):  # every head dim's launches in the serve phase
             kernels[-1]["launches_by_head_dim"] = {
                 str(get_config(arch).hd): n[name] for arch, n in by_arch.items() if n[name]}
@@ -1827,7 +1872,8 @@ def main(argv=None) -> int:
             sv = cases["flash_d112_serve"]
             kernels[-1]["at_serve_shape"] = {
                 k: sv[k] for k in ("case", "max_err", "kernel_ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")}
+                                   "bound_by", "library_ms", "kernel_device_ms",
+                                   "library_device_ms")}
         if key == "decode":  # at recurrentgemma-9b's shape too, and SDPA over the live keys
             rg = cases["decode_rgemma"]
             kernels[-1].update(library_live_ms=c["library_live_ms"], at_d256={

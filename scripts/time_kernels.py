@@ -11,7 +11,16 @@ inputs made as `chip_smoke.py`'s kernel cases make them:
                  `train_recurrent` gives it, and B=4, S=3072) and the RG-LRU
                  reverse scan (D=4096 with h0 and dhT: B=2, S=1024 in bf16,
                  and B=4, S=3072 in bf16 and fp32); and SDPA's causal
-                 backward at the first shape, the flash backward's yardstick.
+                 backward at the first shape, the flash backward's yardstick;
+  flash_forwards the bf16 flash forward (causal) at the serve phase's
+                 shapes, whole and by launch, beside SDPA's whole call and
+                 its time on the card: kimi-k2-1t-a32b's (B=4, 64/8 heads,
+                 D=112) at S=1024 and at its prompt S=256, stablelm-12b's
+                 (B=4, 32/8, D=160) and llama3.2-3b's (B=4, 24/8, D=128) at
+                 S=1024; and the other head dims: qwen1.5-0.5b's (B=4, MHA
+                 16 heads, D=64, S=1024), recurrentgemma-9b's (B=4, 16/1,
+                 D=256, S=3072, window 2048; SDPA with the window's mask)
+                 and D=32 at the smoke configs' width (B=4, 16 heads, S=1024).
 
     python3 scripts/time_kernels.py --root path/to/checkout --case train_kernels
 
@@ -26,8 +35,10 @@ with and without head splits, so two trees' splits can be compared).  To compare
 trees, run it on each in turns (A, B, B, A) on one card.  The training
 kernels' cases also give `host_ms`, the median host time of enqueuing one
 call (the queue empty before it): where it outlasts the flush, the events
-count the difference.  Needs a CUDA card; prints one JSON line with the
-card's name and power limit.
+count the difference.  `device_ms` is `Timer.device`: the device time of
+every kernel of one call, whatever its host time (the flush left out).
+Needs a CUDA card; prints one JSON line with the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -42,9 +53,10 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
-CASES = ("scan_forwards", "train_kernels")
+CASES = ("scan_forwards", "train_kernels", "flash_forwards")
 # each kernel of a call whose device time is split out, by a substring of its name
-LAUNCHES = {"flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
+LAUNCHES = {"flash_fwd": ("flash_fwd_sm90",),
+            "flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
             "rglru_bwd": ("rglru_scan_bwd_kernel", "rglru_bwd_pass1", "rglru_bwd_pass2",
                           "sum_rows")}
 
@@ -87,7 +99,7 @@ def main(argv=None) -> int:
         ms_ = [timer(run) for _ in range(args.reps)]
         if launches is None:
             return ms_
-        out = {"ms": ms_, "host_ms": host_ms(run)}
+        out = {"ms": ms_, "host_ms": host_ms(run), "device_ms": timer.device(run)}
         if launches in LAUNCHES:
             split = timer.split(run, {name: name for name in LAUNCHES[launches]})
             out["split_ms"] = {k: v for k, v in split.items() if v is not None}
@@ -130,6 +142,19 @@ def main(argv=None) -> int:
                                                                enable_gqa=True)
         return times(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), "sdpa")
 
+    def flash_fwd(B, Hq, Hkv, S, D, window=None):  # the inputs of chip_smoke.flash_case
+        g = torch.Generator(device="cuda").manual_seed(S * 7 + S)
+        q, k, v = (torch.randn((B, h, S, D), generator=g, device="cuda").to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - (window or S))
+        lib = (lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)) if window else (
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        return {"kernel": times(lambda: fa.flash_attention(q, k, v, causal=True, window=window),
+                                "flash_fwd"),
+                "sdpa": times(lib, "sdpa")}
+
     def rglru_bwd(B, S, dt):
         rn, x, r, i, log_a = rglru_inputs(B, S, 4096, dt, S + 4096 + 1)
         h0, dy, dhT = rn(B, 4096), rn(B, S, 4096).to(dt), rn(B, 4096)
@@ -145,6 +170,14 @@ def main(argv=None) -> int:
         out.update(mamba_bf16_B4_S1024_ms=mamba(4, 1024, 8192, 16, torch.bfloat16, False),
                    mamba_fp32_B4_S1000_h0_ms=mamba(4, 1000, 8192, 16, torch.float32, True),
                    rglru_bf16_B4_S3072_ms=rglru(4, 3072, 4096, torch.bfloat16))
+    elif args.case == "flash_forwards":
+        out.update(flash_fwd_d112_B4_S1024=flash_fwd(4, 64, 8, 1024, 112),
+                   flash_fwd_d112_B4_S256=flash_fwd(4, 64, 8, 256, 112),
+                   flash_fwd_d160_B4_S1024=flash_fwd(4, 32, 8, 1024, 160),
+                   flash_fwd_d128_B4_S1024=flash_fwd(4, 24, 8, 1024, 128),
+                   flash_fwd_d64_B4_S1024=flash_fwd(4, 16, 16, 1024, 64),
+                   flash_fwd_d32_B4_S1024=flash_fwd(4, 16, 16, 1024, 32),
+                   flash_fwd_d256_B4_S3072_w2048=flash_fwd(4, 16, 1, 3072, 256, 2048))
     else:
         out.update(flash_bwd_d256_B2_S1024=flash_bwd(2, 1024),
                    flash_bwd_d256_B4_S3072=flash_bwd(4, 3072),

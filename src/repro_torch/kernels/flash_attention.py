@@ -8,8 +8,12 @@ Its plain PyTorch version is ``ref.flash_attention_reference``.  Two
 kernels take the work, by dtype alone (``_route``):
 
   * bf16 -> ``"wgmma"``, ``csrc/flash_attention_sm90.cu``: products on the
-    tensor cores (``wgmma``), K/V tiles by TMA into a two-stage ring guarded
-    by mbarriers, P rounded to bf16 before P V, as FlashAttention-2/3 do;
+    tensor cores (``wgmma``), Q and K/V tiles by TMA into shared memory (K
+    and V on barriers of their own, two to four stages), each consumer
+    warpgroup's softmax of one tile under its P V of the tile before, P
+    rounded to bf16 before P V, as FlashAttention-2/3 do; a persistent grid
+    of ``min(tiles, SMs)`` blocks walks the work tiles longest first
+    (``work_tiles``, ``block_walk``);
   * fp32 -> ``"cuda_core"``, ``csrc/flash_attention.cu``: register-tiled
     products on CUDA cores in full fp32 (``wgmma`` on fp32 is TF32, about
     three decimal digits, which the fp32 tolerance of 2e-5 rules out).
@@ -62,12 +66,43 @@ def _route(dtype: torch.dtype, head_dim: int) -> str:
     raise ValueError(f"flash_attention: dtype {dtype}; float32 or bfloat16")
 
 
+def work_tiles(b: int, hq: int, hkv: int, sq: int, causal: bool):
+    """The wgmma forward's work tiles, (batch, first query head, first row),
+    in the order its blocks take them.  A tile is 128 rows of one head, or,
+    when the group size hq / hkv is even, the same 64 rows of two heads of one
+    KV group; causal tiles come last rows first, so the longest come first.
+    The kernel computes the same order (``work_tile`` in the source)."""
+    hpb, span, gx, gy = _tile_grid(b, hq, hkv, sq)
+    tiles = []
+    for w in range(gx * gy):
+        x, y = w % gx, w // gx
+        tiles.append((x // (hq // hpb), (x % (hq // hpb)) * hpb,
+                      (gy - 1 - y if causal else y) * span))
+    return tiles
+
+
+def _tile_grid(b: int, hq: int, hkv: int, sq: int):
+    """(heads a tile, rows a tile, tiles across heads, tiles down the rows)."""
+    hpb, span = (2, 64) if (hq // hkv) % 2 == 0 else (1, 128)
+    return hpb, span, b * hq // hpb, -(-sq // span)
+
+
+def block_walk(b: int, hq: int, hkv: int, sq: int, causal: bool, sms: int):
+    """The tiles of `work_tiles` that each block of the persistent grid
+    takes, in its order: min(tiles, sms) blocks, block p taking tiles p,
+    p + blocks, p + 2 blocks, ...  It follows from the shape and the SM count
+    alone; which block computes a row never changes its bits."""
+    tiles = work_tiles(b, hq, hkv, sq, causal)
+    n = min(len(tiles), sms)
+    return [tiles[p::n] for p in range(n)]
+
+
 def _fn(route: str):
     """The C entry point of `route`'s library, its argument types set."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if route == "wgmma":
         fn = _build.load("flash_attention_sm90").repro_flash_attention_sm90
-        types = [p] * 5 + [i] * 6 + [f, i, i, i, p]
+        types = [p] * 5 + [i] * 6 + [f, i, i, i, i, p]
     else:
         fn = _build.load("flash_attention").repro_flash_attention
         types = [p] * 5 + [i] * 7 + [f, i, i, i, p]
@@ -131,9 +166,14 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if return_lse else None)
-        dtype_code = () if route == "wgmma" else (0,)  # the CUDA-core kernel: 0 = float32
-        err = _fn(route)(*ptrs, *dtype_code, b, hq, hkv, sq, sk, d, scale, int(bool(causal)),
-                         int(window or 0), int(q_offset), stream)
+        if route == "wgmma":  # the persistent grid: a block an SM, or a tile each
+            _, _, gx, gy = _tile_grid(b, hq, hkv, sq)
+            args = (b, hq, hkv, sq, sk, d, scale, int(bool(causal)), int(window or 0),
+                    int(q_offset), min(gx * gy, _bwd._sm_count(q.device.index)))
+        else:  # the CUDA-core kernel: 0 = float32
+            args = (0, b, hq, hkv, sq, sk, d, scale, int(bool(causal)), int(window or 0),
+                    int(q_offset))
+        err = _fn(route)(*ptrs, *args, stream)
     if err:
         raise RuntimeError(f"flash_attention: {route} kernel launch failed with cudaError {err}")
     global launches

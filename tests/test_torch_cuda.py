@@ -75,6 +75,15 @@ def _randn(gen, shape, dtype):
     (1, 4, 2, 300, 300, 112),     # head_dim 112, GQA, off the tile
     (2, 4, 1, 200, 333, 160),     # stablelm-12b's head_dim 160: MQA, ragged, Sk > Sq
     (1, 8, 2, 130, 130, 160),     # head_dim 160, a group of 4, off the tile
+    # the edges of the bf16 forward's persistent walk and overlapped schedule
+    (1, 8, 1, 100, 100, 112),     # one key tile (128 keys at D=112)
+    (1, 4, 1, 60, 60, 160),       # one key tile (64 keys at D=160)
+    (1, 3, 1, 300, 300, 112),     # a group of 3: unpaired heads, 128 rows a tile
+    (2, 6, 2, 257, 257, 160),     # a group of 3, ragged
+    (1, 4, 2, 256, 256, 112),     # 8 work tiles: fewer than the SMs
+    (1, 2, 1, 128, 160, 160),     # 2 work tiles, Sk > Sq
+    (4, 64, 8, 256, 256, 112),    # kimi-k2's prompt: 512 work tiles, ~4 a block
+    (4, 32, 8, 512, 512, 160),    # 512 work tiles at D=160
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 128), (True, 17)])
@@ -90,6 +99,11 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d, dtype, causal, 
     assert fa.launches_by_route[ROUTE[dtype]] == by_route + 1
     want = ref.mha_reference(q, k, v, **kw)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=1e-2)
+    # the row log-sum-exp too, and a second call bit for bit
+    again, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    _, want_lse = ref.flash_attention_reference(q, k, v, return_lse=True, **kw)
+    assert torch.equal(again, out)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
@@ -539,6 +553,55 @@ def test_flash_backward_bits_unchanged_at_one_head_split(cuda, shape):
     assert fb.head_splits(b, hq, hkv, s, d, sms) == 1
     assert _bwd_digest(*shape) == BITS_AT_ONE_SPLIT[shape]
     assert fb.last_head_splits == 1
+
+
+def _fwd_digest(b, hq, hkv, sq, sk, d, window):
+    """sha256 of the bf16 o and fp32 lse bytes of the wgmma forward on inputs
+    made by numpy from a seed (causal, q_offset = sk - sq)."""
+    rng = np.random.default_rng(b * hq * sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda",
+                                                                                 torch.bfloat16)
+               for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    o, lse = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=sk - sq,
+                                return_lse=True)
+    h = hashlib.sha256()
+    h.update(o.view(torch.int16).cpu().numpy().tobytes())
+    h.update(lse.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# The wgmma forward's outputs and lse on these inputs, as the design before
+# the forward's overlapped schedule computed them on an NVIDIA H100 80GB HBM3:
+# a schedule reorders no arithmetic, so every head dim keeps these bits.
+# kimi-k2's (D=112, 64/8 heads), llama3.2-3b's (D=128), stablelm-12b's
+# (D=160, 32/8) and recurrentgemma-9b's (D=256, 16/1, window 2048) prefill
+# shapes; MHA at D=64 with a window; and ragged groups of 3 with q_offset
+FWD_BITS = {
+    (4, 64, 8, 1024, 1024, 112, None):
+        "c18ad6dcca59598403054df5af7aad108e90bbe7d1c4316f29f3c428b565253c",
+    (4, 24, 8, 1024, 1024, 128, None):
+        "e76a228814c963faecf6ca50743ab898f466d47f3cabe98ac4b9c13956d6363c",
+    (4, 32, 8, 1024, 1024, 160, None):
+        "e23ab5b720a92f40e4239717f3dba213e82dfa5d61f6dcf7ea35aa3f1149e77a",
+    (1, 16, 1, 3072, 3072, 256, 2048):
+        "feb0f0a08f2ca09c6a32f53527076ceacdfcc5aa5a28e4a52004db278abc6c9d",
+    (2, 16, 16, 1024, 1024, 64, 200):
+        "d7d3958180dccdfc5b0954ba4845611c6b6da4c75897abdc375d98d5f8284526",
+    (1, 6, 2, 300, 777, 32, None):
+        "3f33656252d81ce2d6f2698ef56a55d684c6c798e235bcb791067a8020114314",
+    (1, 3, 1, 200, 500, 112, 64):
+        "ecc002f1239a578d022ea8bcb1d57605497fd22e07b09f73f23121477cef784a",
+    (2, 12, 4, 333, 333, 160, None):
+        "ebbc7606c9ff71ac3b1c68154a08fb5f363f170e8ebeaead133f0b9fec508cc6",
+}
+
+
+@pytest.mark.parametrize("shape", list(FWD_BITS))
+def test_flash_forward_bits_unchanged(cuda, shape):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the digests are an H100 SXM's (132 SMs); this card has {sms}")
+    assert _fwd_digest(*shape) == FWD_BITS[shape]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
