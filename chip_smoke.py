@@ -38,7 +38,13 @@ It prints one JSON object per line, one line per phase:
            runs bitwise equal; the bf16 flash backward at head_dim 256 adds
            its head_splits and each launch's device time (prep_ms, dkdv_ms,
            dq_ms, reduce_ms: torch.profiler), the RG-LRU one its chunk and
-           pass1_ms, pass2_ms, sum_ms.  Head dims 112 (kimi-k2) and 160
+           pass1_ms, pass2_ms, sum_ms, the Mamba one its chunk, pass1_ms,
+           pass2_ms, sum_ms and launch_ms (each launch in order, its three
+           ordered sums one by one), also at falcon-mamba-7b's training
+           shape (B=1) and a ragged S.  The RG-LRU forward is also checked
+           at recurrentgemma-9b's training shape (B=2, S=1024), and every
+           RG-LRU forward case holds two runs bitwise equal (bitwise_repeat).
+           Head dims 112 (kimi-k2) and 160
            (stablelm-12b): flash forward at their prefill shapes, backward
            at their training shapes (B=2, S=1024) and decode over a
            32768-slot cache, in bf16 and fp32
@@ -80,9 +86,10 @@ It prints one JSON object per line, one line per phase:
            counts, all flash on "wgmma"; step ms, tokens/s, peak memory,
            losses, grad norms; then every parameter's step-0 gradient,
            finite and nonzero in every layer; then torch.profiler over one
-           recurrentgemma-9b step after a warm-up step: wall, device ms, idle
-           share, launches, and the device time and share of the flash
-           backward's launches and of the RG-LRU reverse scan
+           step of each after a warm-up step: wall, device ms, idle share,
+           launches, and the device time and share of the Mamba scan and its
+           reverse scan (falcon-mamba-7b), of the flash backward's launches
+           and of the RG-LRU scan and its reverse scan (recurrentgemma-9b)
   train_stablelm  stablelm-12b at published widths cut to 24 of 40 layers
            (bf16, Adafactor with bf16 momentum, no store), through the
            Trainer train.main builds, for 4 steps of 2 x 1024 tokens; flash
@@ -114,8 +121,9 @@ It prints one JSON object per line, one line per phase:
            case; the
            flash and decode entries also name their design (one kernel a
            dtype), decode adds its recurrentgemma-9b case, mamba its design,
-           the flash backward at head_dim 256 and the RG-LRU reverse scan
-           their designs and per-launch times
+           the RG-LRU forward its design and its training-shape case, the
+           flash backward at head_dim 256 and the two reverse scans their
+           designs and per-launch times
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
 script exits non-zero without it.  It also exits non-zero, with no result,
@@ -177,7 +185,13 @@ DECODE_DESIGN = ("mma.sync m16n8k16 on a 3-stage cp.async ring, splits from the 
                  "(bf16); CUDA cores, 256-key chunks of the cache (fp32)")
 MAMBA_DESIGN = ("4 lanes a channel, N/4 states each; y a tree in a lane, then a "
                 "reduce-scatter over the lanes every 16 steps; x, delta, Bm, Cm by cp.async a "
-                "tile ahead (fp32 and bf16)")
+                "tile ahead; in training the state entering every 16 steps written as the "
+                "backward's checkpoints (fp32 and bf16)")
+RGLRU_DESIGN = ("a block per (row, 32 channels), a lane a channel; its 8 warps split the "
+                "sequence into spans of 16 steps a warp: each warp's summary from a zero "
+                "carry, folded in warp order through shared memory into each warp's carry in "
+                "(its checkpoint), then its steps run from it; the next span's inputs load "
+                "meanwhile, kept in x's type until used")
 FLASH_BWD_D256_DESIGN = (
     "wgmma+TMA (bf16): dK/dV blocks of 64 keys, each KV group's query heads split over "
     "head_splits blocks (from the shape and SM count; fp32 partials summed in split order by "
@@ -185,9 +199,14 @@ FLASH_BWD_D256_DESIGN = (
     "and dS^T exchanged through shared memory, each warpgroup keeping dK, dV of 128 columns; "
     "the dQ kernel on K/V tiles of 48 keys; CUDA cores (fp32)")
 SCAN_BWD_DESIGN = {
-    "mamba_bwd": "reverse scan, 4 lanes a channel; each 32-step tile recomputed from the "
-                 "forward's checkpoint in two 16-step halves kept in registers; dBm, dCm by a "
-                 "reduce-scatter over a warp's channels, per-block partials summed in order",
+    "mamba_bwd": "chunked reverse scan in two passes, 4 lanes a channel: pass 1 writes the "
+                 "summary of every 64 steps right of the first chunk from a zero carry; pass 2, "
+                 "a block per (64 channels, chunk, row), chunks sized for 2 blocks an SM, folds "
+                 "the summaries to its right in order into the true carry and walks the chunk "
+                 "back 16 steps a group, each group's tiles and checkpoint by cp.async a group "
+                 "ahead, its states kept in registers; dBm, dCm by a reduce-scatter of "
+                 "shuffles over a warp's channels, then the warps, per-block partials summed "
+                 "in order",
     "rglru_bwd": "chunked reverse scan in two passes, a thread a (row, 64-step chunk, "
                  "channel): pass 1 writes each chunk's summary from a zero carry, pass 2 folds "
                  "the summaries to its right in order into the true carry and walks the chunk "
@@ -198,6 +217,9 @@ SCAN_BWD_DESIGN = {
 FLASH_BWD_LAUNCHES = {"prep_ms": "bwd_prep", "dkdv_ms": "bwd_dkdv", "dq_ms": "bwd_dq",
                       "reduce_ms": "bwd_reduce"}
 RGLRU_BWD_LAUNCHES = {"pass1_ms": "rglru_bwd_pass1", "pass2_ms": "rglru_bwd_pass2",
+                      "sum_ms": "sum_rows"}
+# and of the Mamba reverse scan, redesigned for falcon-mamba-7b's training
+MAMBA_BWD_LAUNCHES = {"pass1_ms": "mamba_bwd_pass1", "pass2_ms": "mamba_bwd_pass2",
                       "sum_ms": "sum_rows"}
 
 
@@ -278,17 +300,48 @@ class Timer:
                     out[key] = (out[key] or 0.0) + t
         return out
 
-    def device(self, fn, iters: int = 10) -> float:
+    def launches(self, fn, iters: int = 10):
+        """[[kernel name, mean device ms], ...]: each launch of one call of
+        `fn` in the order the card ran them (torch.profiler over `iters`
+        calls, each after an L2 flush; the flush's kernels left out), so a
+        kernel launched more than once a call is timed launch by launch.
+        None where the trace is not whole calls of the same launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                         for e in prof.events() if str(e.device_type).endswith("CUDA"))
+        flush = set(self._profile(lambda: None, 2))
+        kernels = [(name, us) for _, name, us in kernels if name not in flush]
+        if not kernels or len(kernels) % iters:
+            return None
+        n = len(kernels) // iters
+        calls = [kernels[k * n:(k + 1) * n] for k in range(iters)]
+        if any([name for name, _ in c] != [name for name, _ in calls[0]] for c in calls):
+            return None
+        return [[name, float(np.mean([c[j][1] for c in calls])) / 1e3]
+                for j, (name, _) in enumerate(calls[0])]
+
+    def device(self, fn, iters: int = 10):
         """Mean device ms a call of every kernel `fn` launches (torch.profiler),
         the flush's own kernel left out: a call's time on the card alone,
         whatever its host time.  The profiler at times drops a session's
         kernels or keeps another's, so a trace counts only when each of its
         kernels was recorded a whole number of times a call (the flush's:
-        once), and is taken again otherwise."""
+        once), and is taken again otherwise; None (not measured) when ten
+        traces were not whole.  It is a measurement beside the events' time,
+        never a check: a profiler's lost trace does not fail the run."""
         def whole(trace, n):
             return bool(trace) and all(c > 0 and c % n == 0 for _, c in trace.values())
 
-        for _ in range(5):
+        for _ in range(10):
             if not self.flush_kernels:
                 flush = self._profile(lambda: None, 2, counts=True)
                 if whole(flush, 2) and all(c == 2 for _, c in flush.values()):
@@ -298,7 +351,10 @@ class Timer:
                      if k not in self.flush_kernels}
             if whole(trace, iters):
                 return sum(t for t, _ in trace.values())
-        raise RuntimeError("torch.profiler gave no whole trace of the flush or of the call")
+        print("chip_smoke: torch.profiler gave no whole trace in ten; device time not measured",
+              file=sys.stderr, flush=True)
+        return None
+
 
 def flash_case(torch, timer, name, *, B, Hq, Hkv, Sq, Sk, D, dtype, causal=True, window=None,
                device_ms=False):
@@ -450,10 +506,11 @@ def _cuda_core_bf16_decode(torch, q, k, v, length):
 
 
 def _scan_line(kernel, name, dtype, shape, got, want, timer, run, plain, nbytes, flops,
-               exps=0.0):
-    """The kernel line of a scan case: (y, hT) against the plain version's."""
+               exps=0.0, **extra):
+    """The kernel line of a scan case: (y, hT) against the plain version's;
+    `extra` keys added to the line (a `bitwise_repeat` must hold too)."""
     atol, rtol = SCAN_TOL[dtype]
-    errs, ok = [], True
+    errs, ok = [], extra.get("bitwise_repeat", True)
     for g, w in zip(got, want):
         err = (g.float() - w.float()).abs()
         errs.append(float(err.max()))
@@ -464,10 +521,10 @@ def _scan_line(kernel, name, dtype, shape, got, want, timer, run, plain, nbytes,
             "ok": ok, "kernel_ms": timer(run), "plain_ms": timer(plain, iters=3),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "flops": flops, "exps": exps,
-            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, **extra}
     emit(line)
     if not ok:
-        raise AssertionError(f"{kernel} case {name}: max_err {errs}")
+        raise AssertionError(f"{kernel} case {name}: max_err {errs}, {extra}")
     return line
 
 
@@ -488,9 +545,11 @@ def rglru_case(torch, timer, name, *, B, S, D, dtype, with_h0=False):
     # x, r, i read and y written once; log_a, h0 read and hT written once
     nbytes = item * 4 * B * S * D + 4 * D + 4 * B * D * (2 if with_h0 else 1)
     flops = 12.0 * B * S * D  # c*r*log_a, 2 exp, sqrt, 1-, max, i*x, *, fma (2), 2*
+    again = rs.rglru_scan(x, r, i, log_a, h0)[:2]  # the warps' carries fold in a fixed order
     return _scan_line("rglru_scan", name, dtype, {"B": B, "S": S, "D": D, "h0": with_h0},
                       got, want, timer, lambda: rs.rglru_scan(x, r, i, log_a, h0),
-                      lambda: ref.rglru_reference(x, r, i, log_a, h0), nbytes, flops)
+                      lambda: ref.rglru_reference(x, r, i, log_a, h0), nbytes, flops,
+                      bitwise_repeat=all(a.equal(b) for a, b in zip(got, again)))
 
 
 def mamba_case(torch, timer, name, *, B, S, Din, N, dtype, with_h0=False):
@@ -664,7 +723,9 @@ def mamba_bwd_case(torch, timer, name, *, B, S, Din, N, dtype):
         "mamba_scan_bwd", name, dtype, {"B": B, "S": S, "Din": Din, "N": N, "h0": True,
                                         "dhT": True}, timer, run,
         lambda: ref.mamba_scan_backward_reference(*args, dy, dhT, chunk=ms.CHUNK),
-        nbytes, flops, exps=float(B * S * Din * N))  # a_t once per (b, t, d, n) at least
+        nbytes, flops, exps=float(B * S * Din * N),  # a_t once per (b, t, d, n) at least
+        chunk=ms.bwd_chunk(B, S, Din, torch.cuda.get_device_properties(0).multi_processor_count),
+        launch_ms=timer.launches(run), **timer.split(run, MAMBA_BWD_LAUNCHES))
 
 
 def rglru_bwd_case(torch, timer, name, *, B, S, D, dtype):
@@ -797,6 +858,9 @@ def phase_kernels(torch):
                                          S=2048, dtype="bfloat16", lengths=[2048] * 4, **RGEMMA)
     lines["rglru"] = rglru_case(torch, timer, "recurrentgemma-9b prefill", B=4, S=3072, D=4096,
                                 dtype="bfloat16")
+    lines["rglru_train"] = rglru_case(torch, timer, "recurrentgemma-9b training",
+                                      B=TRAIN_RECURRENT[1][2], S=TRAIN_SEQ, D=4096,
+                                      dtype="bfloat16")
     rglru_case(torch, timer, "recurrentgemma-9b prefill fp32", B=4, S=3072, D=4096,
                dtype="float32")
     rglru_case(torch, timer, "ragged S 1000, h0", B=4, S=1000, D=4096, dtype="float32",
@@ -854,6 +918,8 @@ def phase_kernels(torch):
     lines["mamba_bwd_train"] = mamba_bwd_case(
         torch, timer, "falcon-mamba-7b training, h0 and dhT", B=falcon[2], S=TRAIN_SEQ,
         Din=8192, N=16, dtype="bfloat16")
+    mamba_bwd_case(torch, timer, "ragged S 1000, h0 and dhT", B=falcon[2], S=1000, Din=8192,
+                   N=16, dtype="float32")
     lines["rglru_bwd_train"] = rglru_bwd_case(
         torch, timer, "recurrentgemma-9b training, h0 and dhT", B=rgemma[2], S=TRAIN_SEQ,
         D=4096, dtype="bfloat16")
@@ -1333,15 +1399,22 @@ def phase_train_recurrent(torch):
         del out
         torch.cuda.empty_cache()
         _step0_gradients(torch, arch, batch)
-    # where recurrentgemma-9b's step goes, and the share of the two kernels
-    # redesigned for it (the flash backward's launches, the RG-LRU reverse scan)
+    # where each model's step goes, and the share of the kernels redesigned
+    # for it (falcon-mamba-7b: the Mamba scan and its reverse scan;
+    # recurrentgemma-9b: the flash backward's launches, the RG-LRU scan and
+    # its reverse scan)
     from repro_torch.training import OptConfig
 
+    opt = OptConfig(kind="adafactor", lr=1e-3, momentum_dtype="bfloat16")
+    arch, _, batch, _ = TRAIN_RECURRENT[0]
+    _train_profile(torch, arch, opt, batch, "train_recurrent",
+                   {"mamba_fwd": ("mamba_scan_kernel",),
+                    "mamba_bwd": ("mamba_bwd_pass", "mamba_scan_bwd", "sum_rows")})
     arch, _, batch, _ = TRAIN_RECURRENT[1]
-    _train_profile(torch, arch, OptConfig(kind="adafactor", lr=1e-3, momentum_dtype="bfloat16"),
-                   batch, "train_recurrent",
+    _train_profile(torch, arch, opt, batch, "train_recurrent",
                    {"flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
                     "flash_bwd_dkdv_dq": ("bwd_dkdv", "bwd_dq"),
+                    "rglru_fwd": ("rglru_scan_kernel",),
                     "rglru_bwd": ("rglru_bwd_pass", "sum_rows")})
     return total
 
@@ -1881,9 +1954,15 @@ def main(argv=None) -> int:
                                    "bound_by", "library_ms", "library_live_ms")})
         if key == "mamba":
             kernels[-1]["design"] = MAMBA_DESIGN
+        if key == "rglru":  # redesigned: also at train_recurrent's own shape
+            tr = cases["rglru_train"]
+            kernels[-1].update(design=RGLRU_DESIGN, at_train_shape={
+                k: tr[k] for k in ("case", "shape", "max_err", "kernel_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "bitwise_repeat")})
         if key in SCAN_BWD_DESIGN:  # also checked at train_recurrent's own shape
             tr = cases[f"{key}_train"]
-            split = ("chunk", *RGLRU_BWD_LAUNCHES) if key == "rglru_bwd" else ()
+            split = (("chunk", *RGLRU_BWD_LAUNCHES) if key == "rglru_bwd" else
+                     ("chunk", "launch_ms", *MAMBA_BWD_LAUNCHES))
             kernels[-1].update(design=SCAN_BWD_DESIGN[key], **{k: c[k] for k in split},
                                at_train_shape={
                 k: tr[k] for k in ("case", "shape", "max_err", "max_err_rel_to_scale",

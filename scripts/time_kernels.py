@@ -2,16 +2,21 @@
 """Device time of kernels of the checkout at `--root`, by named case, on
 inputs made as `chip_smoke.py`'s kernel cases make them:
 
-  scan_forwards  the serve path's scan forwards: `mamba_scan` at
-                 falcon-mamba-7b's prefill (bf16), and fp32 with h0 at a
-                 ragged S; `rglru_scan` at recurrentgemma-9b's (bf16);
+  scan_forwards  the scan forwards: `mamba_scan` at falcon-mamba-7b's
+                 prefill (bf16), and fp32 with h0 at a ragged S; `rglru_scan`
+                 at recurrentgemma-9b's prefill (B=4, S=3072, D=4096; bf16
+                 and fp32), at its training shape (B=2, S=1024, bf16), and
+                 fp32 with h0 at a ragged S (1000), each launch by launch;
   train_kernels  recurrentgemma-9b's two training kernels, whole and launch
                  by launch: the flash attention backward at head_dim 256
                  (bf16, MQA 16/1 heads, window 2048: B=2, S=1024, the shape
                  `train_recurrent` gives it, and B=4, S=3072) and the RG-LRU
                  reverse scan (D=4096 with h0 and dhT: B=2, S=1024 in bf16,
-                 and B=4, S=3072 in bf16 and fp32); and SDPA's causal
-                 backward at the first shape, the flash backward's yardstick;
+                 and B=4, S=3072 in bf16 and fp32); the Mamba reverse scan
+                 (Din=8192, N=16, with h0 and dhT: B=1, S=1024 in bf16, the
+                 shape `train_recurrent` gives it, and B=4, S=1024 in bf16
+                 and fp32); and SDPA's causal backward at the first shape,
+                 the flash backward's yardstick;
   flash_forwards the bf16 flash forward (causal) at the serve phase's
                  shapes, whole and by launch, beside SDPA's whole call and
                  its time on the card: kimi-k2-1t-a32b's (B=4, 64/8 heads,
@@ -31,7 +36,10 @@ process.  The split by launch is `Timer.split`: torch.profiler's device
 time of each kernel over 10 more calls, divided by the calls, for the
 kernel names of `LAUNCHES` that the call ran (they name both the one-pass
 RG-LRU reverse scan and the two-pass one, and the flash backward's launches
-with and without head splits, so two trees' splits can be compared).  To compare two
+with and without head splits, so two trees' splits can be compared); the
+scans' cases also give `launch_ms`, `Timer.launches`: each launch of a call
+in order, by kernel name, where one kernel runs more than once a call (the
+Mamba reverse scan's three ordered sums).  To compare two
 trees, run it on each in turns (A, B, B, A) on one card.  The training
 kernels' cases also give `host_ms`, the median host time of enqueuing one
 call (the queue empty before it): where it outlasts the flush, the events
@@ -58,6 +66,9 @@ CASES = ("scan_forwards", "train_kernels", "flash_forwards")
 LAUNCHES = {"flash_fwd": ("flash_fwd_sm90",),
             "flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
             "rglru_bwd": ("rglru_scan_bwd_kernel", "rglru_bwd_pass1", "rglru_bwd_pass2",
+                          "sum_rows"),
+            "rglru_fwd": ("rglru_scan_kernel",),
+            "mamba_bwd": ("mamba_scan_bwd_kernel", "mamba_bwd_pass1", "mamba_bwd_pass2",
                           "sum_rows")}
 
 
@@ -103,6 +114,8 @@ def main(argv=None) -> int:
         if launches in LAUNCHES:
             split = timer.split(run, {name: name for name in LAUNCHES[launches]})
             out["split_ms"] = {k: v for k, v in split.items() if v is not None}
+        if launches in ("rglru_fwd", "mamba_bwd"):
+            out["launch_ms"] = timer.launches(run)
         return out
 
     def mamba(B, S, Din, N, dt, with_h0):
@@ -121,9 +134,10 @@ def main(argv=None) -> int:
         r, i = torch.sigmoid(rn(B, S, D)).to(dt), torch.sigmoid(rn(B, S, D)).to(dt)
         return rn, x, r, i, -torch.exp(rn(D) * 0.3) * 0.1
 
-    def rglru(B, S, D, dt):
-        _, x, r, i, log_a = rglru_inputs(B, S, D, dt, S + D)
-        return times(lambda: rs.rglru_scan(x, r, i, log_a, None))
+    def rglru(B, S, D, dt, with_h0=False):  # the inputs of chip_smoke.rglru_case
+        rn, x, r, i, log_a = rglru_inputs(B, S, D, dt, S + D)
+        h0 = rn(B, D) if with_h0 else None
+        return times(lambda: rs.rglru_scan(x, r, i, log_a, h0), "rglru_fwd")
 
     def flash_bwd(B, S):
         g = torch.Generator(device="cuda").manual_seed(S * 3 + 256)
@@ -162,6 +176,18 @@ def main(argv=None) -> int:
         return times(lambda: rs.rglru_scan_backward(x, r, i, log_a, h0, dy, dhT, ckpt),
                      "rglru_bwd")
 
+    def mamba_bwd(B, S, dt):  # the inputs of chip_smoke.mamba_bwd_case
+        Din, N = 8192, 16
+        g = torch.Generator(device="cuda").manual_seed(S + Din + N + 1)
+        rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+        x, delta = rn(B, S, Din).to(dt), torch.nn.functional.softplus(rn(B, S, Din))
+        A = -torch.exp(rn(Din, N) * 0.5)
+        Bm, Cm, D, h0 = rn(B, S, N).to(dt), rn(B, S, N).to(dt), rn(Din), rn(B, Din, N)
+        dy, dhT = rn(B, S, Din).to(dt), rn(B, Din, N)
+        args = (x, delta, A, Bm, Cm, D, h0)
+        ckpt = ms.mamba_scan(*args, checkpoints=True)[2]
+        return times(lambda: ms.mamba_scan_backward(*args, dy, dhT, ckpt), "mamba_bwd")
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     out = {"root": str(root), "case": args.case,
@@ -169,7 +195,10 @@ def main(argv=None) -> int:
     if args.case == "scan_forwards":
         out.update(mamba_bf16_B4_S1024_ms=mamba(4, 1024, 8192, 16, torch.bfloat16, False),
                    mamba_fp32_B4_S1000_h0_ms=mamba(4, 1000, 8192, 16, torch.float32, True),
-                   rglru_bf16_B4_S3072_ms=rglru(4, 3072, 4096, torch.bfloat16))
+                   rglru_bf16_B4_S3072_ms=rglru(4, 3072, 4096, torch.bfloat16),
+                   rglru_fp32_B4_S3072_ms=rglru(4, 3072, 4096, torch.float32),
+                   rglru_bf16_B2_S1024_ms=rglru(2, 1024, 4096, torch.bfloat16),
+                   rglru_fp32_B4_S1000_h0_ms=rglru(4, 1000, 4096, torch.float32, True))
     elif args.case == "flash_forwards":
         out.update(flash_fwd_d112_B4_S1024=flash_fwd(4, 64, 8, 1024, 112),
                    flash_fwd_d112_B4_S256=flash_fwd(4, 64, 8, 256, 112),
@@ -186,6 +215,10 @@ def main(argv=None) -> int:
         out.update(rglru_bwd_bf16_B2_S1024=rglru_bwd(2, 1024, torch.bfloat16),
                    rglru_bwd_bf16_B4_S3072=rglru_bwd(4, 3072, torch.bfloat16),
                    rglru_bwd_fp32_B4_S3072=rglru_bwd(4, 3072, torch.float32))
+        torch.cuda.empty_cache()
+        out.update(mamba_bwd_bf16_B1_S1024=mamba_bwd(1, 1024, torch.bfloat16),
+                   mamba_bwd_bf16_B4_S1024=mamba_bwd(4, 1024, torch.bfloat16),
+                   mamba_bwd_fp32_B4_S1024=mamba_bwd(4, 1024, torch.float32))
     print(json.dumps(out), flush=True)
     return 0
 

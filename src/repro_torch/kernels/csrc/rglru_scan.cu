@@ -9,27 +9,47 @@
 // (`gated = i * x`, repro/kernels/ref.py:rglru_reference) and the plain
 // version; the rest is fp32.
 //
-// Shape: one thread per (batch row, channel), 64 channels to a block.  The
-// TPU kernel runs an associative scan over each chunk of 256 steps, with the
-// carry in VMEM across a sequential grid axis; here the carry stays in one
-// fp32 register and the thread walks t = 0..S-1 itself, so no step is
-// recomputed and nothing but y and hT is written.  Neighbouring threads hold
-// neighbouring channels, so every load and store of a [B,S,D] row coalesces.
-// The loads do not depend on the carry: each thread first loads U steps of
-// x, r and i into registers (3U loads in flight), then runs the U steps.
-// A ragged S needs no padding: the last group of steps is cut at S.
+// Shape: a block per (batch row, 32 channels), a lane a channel, and its W
+// warps split the sequence: a span of W x U steps, warp w taking U = 16 of
+// them.  The TPU kernel runs an associative scan over each chunk of 256
+// steps, with the carry in VMEM across a sequential grid axis; here a span is
+// three steps:
+//   1. each warp turns its U steps' inputs into a_t and b_t = sqrt(max(1 -
+//      a_t^2, 1e-12)) (i_t x_t), kept in registers, and their summary from a
+//      zero carry: P = prod a_t and H = the h it reaches, by the per-step
+//      recurrence below;
+//   2. the summaries go through shared memory, and every warp folds those of
+//      the warps before it, from the first, into the span's carry: its own
+//      carry in, h = P_j h + H_j a warp at a time.  Every warp also folds all
+//      W, in the same order, so each holds the next span's carry;
+//   3. each warp runs its U steps from its carry in, h = fmaf(a_t, h, b_t),
+//      writing y.
+// The inputs of the next span are loaded before step 2, so they arrive under
+// steps 2 and 3; they stay in x's type until step 1 uses them (widened as
+// loaded, each step's widening would wait for its loads before the next
+// step's were issued, as the backward's note below says).  Nothing is read
+// twice and nothing but y, hT (and the checkpoints) is written.
+// Neighbouring lanes hold neighbouring channels, so every load and store of a
+// [B,S,D] row coalesces.  The fold order is fixed, so two runs give the same
+// bits; y differs from a step-by-step walk over the whole sequence in
+// rounding only (the carries between warps come from summaries).  W = 8: a
+// trial build with 4 warps a block (twice the blocks an SM) was slower at
+// recurrentgemma-9b's training shape (B=2, 256 blocks: too few loads in
+// flight) and no faster at its prefill.  A ragged S needs no padding: a
+// warp's steps are cut at S.
 //
 // What bounds it: bytes.  Per element it reads three values and writes one,
-// against ~10 operations (two exponentials and a square root among them), so
+// against ~12 operations (two exponentials and a square root among them), so
 // the least time is the [B,S,D] traffic over the memory rate (recurrentgemma
-// prefill, B=4, S=3072, D=4096, bf16: 403 MB, 0.12 ms at 3.35 TB/s).  With
-// one thread per channel that shape has only 16384 threads, about 4 warps an
-// SM, too few loads in flight to pull the full rate; a chunked three-pass form
-// (chunk summaries, carry across chunks, apply) that also splits the
-// sequence over threads is the later fix.
+// prefill, B=4, S=3072, D=4096, bf16: 403 MB, 0.12 ms at 3.35 TB/s).  A
+// thread a row and channel walking all of S would have 16384 threads at that
+// shape, ~4 warps an SM with 16 steps of loads in flight each, too few to
+// pull the memory's rate (0.77 ms on an H100 SXM); here 512 blocks of 8
+// warps, two an SM, keep a span's loads in flight under the last span's work.
 //
 // With `ckpt` non-null the forward also writes the carry entering every U
-// steps, [B, ceil(S / U), D] fp32: where the backward starts each group.
+// steps, [B, ceil(S / U), D] fp32: each warp's carry in, the one its steps
+// used, so the backward's recompute of a group from it gives y's own values.
 //
 // The backward (repro_rglru_scan_bwd, no TPU kernel: the JAX package
 // differentiates its XLA reference).  With g_t the gradient of h_t, m_t =
@@ -73,8 +93,8 @@
 
 namespace {
 
-constexpr int NT = 64;  // channels (threads) per block
-constexpr int U = 16;   // steps loaded ahead of the recurrence
+constexpr int U = 16;   // steps a warp takes of a span; the checkpoint spacing
+constexpr int W = 8;    // warps of a block of the forward: a span is W U steps
 
 // The gate product in x's type (a bf16 product of two bf16 is exact in fp32,
 // so this is the oracle's rounded product), widened back to fp32.
@@ -83,43 +103,93 @@ __device__ __forceinline__ float gate(float i, float x) {
   return repro::to_float(repro::from_float<T>(i * x));
 }
 
+// a_t and the input term b_t of one step, by the arithmetic the reverse scan
+// repeats from the checkpoints (rglru_bwd_pass2_kernel)
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void decay_input(T r, T i, T x, float la, float c, float& a,
+                                            float& b) {
+  const float log_at = (c * repro::to_float(r)) * la;
+  a = expf(log_at);
+  const float mult = sqrtf(fmaxf(1.f - expf(2.f * log_at), 1e-12f));
+  b = mult * gate<T>(repro::to_float(i), repro::to_float(x));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * W, 2)
 rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ gi,
                   const float* __restrict__ log_a, const float* __restrict__ h0,
                   T* __restrict__ y, float* __restrict__ hT, float* __restrict__ ckpt, int S,
                   int D, float c) {
-  const int b = blockIdx.y, d = blockIdx.x * NT + threadIdx.x;
-  if (d >= D) return;
-  const float la = log_a[d];
-  float h = h0 != nullptr ? h0[(size_t)b * D + d] : 0.f;
+  constexpr int SPAN = W * U;
+  __shared__ float2 sums[2][W][32];  // (P, H) of each warp's steps, by span parity
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int b = blockIdx.y, d = blockIdx.x * 32 + lane;
+  const bool live = d < D;
+  const float la = live ? log_a[d] : 0.f;
+  float carry = (live && h0 != nullptr) ? h0[(size_t)b * D + d] : 0.f;  // into the span
   const size_t base = (size_t)b * S * D + d;
   const int groups = (S + U - 1) / U;
-  for (int t0 = 0; t0 < S; t0 += U) {
-    const int steps = min(U, S - t0);
-    if (ckpt != nullptr) ckpt[((size_t)b * groups + t0 / U) * D + d] = h;
-    float xv[U], rv[U], iv[U];
+
+  T xv[U], rv[U], iv[U];  // the warp's next U steps, as loaded
+  auto load = [&](int t0) {
+    const int steps = live ? max(0, min(U, S - t0)) : 0;
+    if (steps == U) {  // a whole group: its 3U loads issued in one run, no branch between
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (u < steps) {
+      for (int u = 0; u < U; ++u) {
         const size_t off = base + (size_t)(t0 + u) * D;
-        xv[u] = repro::to_float(x[off]);
-        rv[u] = repro::to_float(r[off]);
-        iv[u] = repro::to_float(gi[off]);
+        xv[u] = x[off];
+        rv[u] = r[off];
+        iv[u] = gi[off];
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u < steps) {
+          const size_t off = base + (size_t)(t0 + u) * D;
+          xv[u] = x[off];
+          rv[u] = r[off];
+          iv[u] = gi[off];
+        }
       }
     }
+  };
+
+  load(w * U);
+  for (int s0 = 0, k = 0; s0 < S; s0 += SPAN, ++k) {
+    const int t0 = s0 + w * U, steps = live ? max(0, min(U, S - t0)) : 0;
+    float av[U], bv[U], P = 1.f, H = 0.f;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (u < steps) {
-        const float log_at = (c * rv[u]) * la;
-        const float a = expf(log_at);
-        const float mult = sqrtf(fmaxf(1.f - expf(2.f * log_at), 1e-12f));
-        h = fmaf(a, h, mult * gate<T>(iv[u], xv[u]));
-        y[base + (size_t)(t0 + u) * D] = repro::from_float<T>(h);
+        decay_input<T>(rv[u], iv[u], xv[u], la, c, av[u], bv[u]);
+        H = fmaf(av[u], H, bv[u]);
+        P *= av[u];
       }
+    }
+    if (s0 + SPAN < S) load(t0 + SPAN);  // under the fold and the run
+    sums[k & 1][w][lane] = make_float2(P, H);
+    __syncthreads();  // one a span: a warp writes sums[k & 1] again two spans on
+    float hin = carry, h = carry;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {  // warps in order: w's carry in, then the span's out
+      if (j == w) hin = h;
+      const float2 ph = sums[k & 1][j][lane];
+      h = fmaf(ph.x, h, ph.y);
+    }
+    carry = h;
+    if (steps > 0) {
+      if (ckpt != nullptr) ckpt[((size_t)b * groups + t0 / U) * D + d] = hin;
+      h = hin;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u < steps) {
+          h = fmaf(av[u], h, bv[u]);
+          y[base + (size_t)(t0 + u) * D] = repro::from_float<T>(h);
+        }
+      }
+      if (t0 + steps == S) hT[(size_t)b * D + d] = h;
     }
   }
-  hT[(size_t)b * D + d] = h;
 }
 
 constexpr int BWD_NT = 128;  // threads a block of the backward passes
@@ -222,10 +292,9 @@ rglru_bwd_pass2_kernel(const T* __restrict__ x, const T* __restrict__ r, const T
 #pragma unroll
     for (int u = 0; u < U; ++u) {  // the forward's carries, by its arithmetic
       if (u < steps) {
-        const float log_at = (c * repro::to_float(rv[u])) * la;
-        const float a = expf(log_at);
-        const float mult = sqrtf(fmaxf(1.f - expf(2.f * log_at), 1e-12f));
-        h = fmaf(a, h, mult * gate<T>(repro::to_float(iv[u]), repro::to_float(xv[u])));
+        float a, bu;
+        decay_input<T>(rv[u], iv[u], xv[u], la, c, a, bu);
+        h = fmaf(a, h, bu);
         hs[u] = h;
         av[u] = a;
       }
@@ -270,8 +339,8 @@ template <typename T>
 cudaError_t launch(const void* x, const void* r, const void* gi, const float* log_a,
                    const float* h0, void* y, float* hT, float* ckpt, int B, int S, int D, float c,
                    cudaStream_t stream) {
-  const dim3 grid((D + NT - 1) / NT, B);
-  rglru_scan_kernel<T><<<grid, NT, 0, stream>>>(
+  const dim3 grid((D + 31) / 32, B);
+  rglru_scan_kernel<T><<<grid, 32 * W, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const T*>(gi), log_a, h0,
       static_cast<T*>(y), hT, ckpt, S, D, c);
   return cudaGetLastError();

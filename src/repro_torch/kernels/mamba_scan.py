@@ -22,11 +22,17 @@ whose forward also writes the fp32 state entering every ``CHUNK`` steps and
 whose backward is the hand-written reverse scan ``mamba_scan_backward``
 (``repro_mamba_scan_bwd`` in the same source; the JAX package has no
 backward kernel: it differentiates its XLA reference).  Its plain version is
-``ref.mamba_scan_backward_reference``, the same formulas.
+``ref.mamba_scan_backward_reference``, the same formulas.  The reverse scan
+splits the sequence into chunks of ``bwd_chunk`` steps that run in
+parallel: a first pass writes the summary of every ``SUMMARY_CHUNK`` steps
+right of the first chunk (the a g it reaches from a zero carry, and the
+product of its decays), a second folds the summaries to its right into each
+chunk's true carry and walks the chunk again from the forward's
+checkpoints (see the source).
 
 ``launches`` counts forward kernel launches, ``bwd_launches`` backward calls
-(one per call: the C entry point issues the reverse scan and the fixed-order
-sums over blocks); the plain path never adds to either.
+(one per call: the C entry point issues the two passes and the fixed-order
+sums of the partials); the plain path never adds to either.
 """
 
 from __future__ import annotations
@@ -37,12 +43,17 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .flash_attention_bwd import _sm_count
 from .ref import mamba_scan_backward_reference, mamba_scan_reference
 
 STATE_DIMS = (8, 16)
-CHUNK = 32       # steps between the forward's checkpoints: the kernels' tile
-CHANNELS = 64    # channels a block: the backward's partial sums of dBm, dCm (the kernel
-                 # refuses scratch sized for another count)
+# The backward's layout, the kernel's own constants (checked against the
+# library at load); the wrapper sizes the scratch from these, and the kernel
+# refuses scratch sized for another layout
+CHUNK = 16           # steps between the forward's checkpoints: a group of the backward
+CHANNELS = 64        # channels a block: the backward's partial sums of dBm, dCm
+SUMMARY_CHUNK = 64   # steps of a chunk of the backward's first pass
+BWD_BLOCKS_PER_SM = 2  # blocks of the backward's second pass an SM holds (its launch bounds)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -51,13 +62,40 @@ bwd_launches = 0
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mamba_scan")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn, types in ((lib.repro_mamba_scan, [p] * 10 + [i] * 5 + [p]),
-                      (lib.repro_mamba_scan_bwd, [p] * 18 + [i] * 6 + [p])):
-        if fn.argtypes is None:
+    if lib.repro_mamba_scan_bwd.argtypes is None:
+        layout = tuple(lib.repro_mamba_scan_bwd_layout(k) for k in range(3))
+        if layout != (CHANNELS, CHUNK, SUMMARY_CHUNK):
+            raise RuntimeError(f"mamba_scan: the library's backward layout is {layout}, the "
+                               f"wrapper's {(CHANNELS, CHUNK, SUMMARY_CHUNK)}")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn, types in ((lib.repro_mamba_scan, [p] * 10 + [i] * 5 + [p]),
+                          (lib.repro_mamba_scan_bwd,
+                           [p] * 16 + [ctypes.c_longlong] + [i] * 6 + [p])):
             fn.argtypes = types
             fn.restype = ctypes.c_int
     return lib
+
+
+def bwd_chunk(b: int, s: int, din: int, sms: int) -> int:
+    """Steps of a chunk of the reverse scan's second pass: a multiple of
+    SUMMARY_CHUNK, as few chunks as give about BWD_BLOCKS_PER_SM blocks an SM
+    (never more than that many, so the blocks run in one wave), one chunk
+    where the rows and channel blocks alone fill the card."""
+    blocks = b * -(-din // CHANNELS)
+    n_sum = -(-s // SUMMARY_CHUNK)
+    chunks = max(1, min(n_sum, BWD_BLOCKS_PER_SM * sms // blocks))
+    return -(-n_sum // chunks) * SUMMARY_CHUNK
+
+
+def bwd_scratch_numel(b: int, s: int, din: int, n: int, chunk: int) -> int:
+    """fp32 elements of the reverse scan's scratch with chunks of `chunk`
+    steps: the dBm/dCm partials of every block [ceil(Din / CHANNELS), 2, B,
+    S, N], the dA and dD partials of every (row, chunk) [B, nC, Din, N + 1],
+    and the two summaries of every SUMMARY_CHUNK steps [2, B, ceil(S /
+    SUMMARY_CHUNK), Din, N]."""
+    n_chunks, n_sum = -(-s // chunk), -(-s // SUMMARY_CHUNK)
+    return (-(-din // CHANNELS) * 2 * b * s * n + b * n_chunks * din * (n + 1)
+            + 2 * b * n_sum * din * n)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype, shape) -> None:
@@ -158,8 +196,9 @@ def mamba_scan_backward(
     CPU tensors take the plain version (which recomputes the checkpoints
     from h0).  CUDA tensors launch the kernel, or raise when the kernel does
     not take them: nothing falls back.  Two calls give the same bits: the
-    sums over channels of dBm and dCm, and over rows of dA and dD, are
-    per-block partials summed in a fixed order, with no atomics.
+    chunks' carries fold in a fixed order, and the sums over channels of dBm
+    and dCm, and over rows and chunks of dA and dD, are partials summed in a
+    fixed order, with no atomics.
     """
     if x.device.type == "cpu":
         return mamba_scan_backward_reference(x, delta, A, Bm, Cm, D, h0, dy, dhT,
@@ -179,14 +218,14 @@ def mamba_scan_backward(
     dbc = torch.empty((2, b, s, n), dtype=x.dtype, device=x.device)  # dBm, dCm
     if x.numel() == 0:
         return dx, dd, dA, dbc[0], dbc[1], dD, dh0
-    part_bc = torch.empty((-(-din // CHANNELS), 2, b, s, n), **f32)
-    part_a, part_d = torch.empty((b, din, n), **f32), torch.empty((b, din), **f32)
+    chunk = bwd_chunk(b, s, din, _sm_count(x.device.index))
+    scratch = torch.empty(bwd_scratch_numel(b, s, din, n, chunk), **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().repro_mamba_scan_bwd(
             *(t.data_ptr() for t in (x, delta, A, Bm, Cm, D, dy)), _ptr(dhT), ckpt.data_ptr(),
-            *(t.data_ptr() for t in (dx, dd, dA, dbc, dD, dh0, part_bc, part_a, part_d)),
-            _DTYPE_CODES[x.dtype], b, s, din, n, part_bc.shape[0], stream)
+            *(t.data_ptr() for t in (dx, dd, dA, dbc, dD, dh0, scratch)), scratch.numel(),
+            _DTYPE_CODES[x.dtype], b, s, din, n, chunk, stream)
     if err:
         raise RuntimeError(f"mamba_scan_backward: kernel launch failed with cudaError {err}")
     global bwd_launches

@@ -9,9 +9,12 @@ version is ``ref.rglru_reference``.
 What bounds it on the H100: bytes (three [B, S, D] reads and one write
 against ~10 operations an element).  At recurrentgemma-9b's prefill (B=4,
 S=3072, D=4096, bf16) that is 403 MB, 0.12 ms at 3.35 TB/s.  The design:
-one thread per (row, channel) walks the sequence with the carry in a
-register, loading 16 steps ahead of the recurrence; see the note in the
-source for what limits it (PERF.md has its times).
+a block per (row, 32 channels), a lane a channel, whose warps split the
+sequence into spans of ``CHUNK`` steps a warp: each warp summarises its
+steps, the summaries are folded in warp order into each warp's carry in,
+and each warp runs its steps from it, the next span's inputs loading
+meanwhile; the carry between spans stays in registers (see the source;
+PERF.md has its times).
 
 Training differentiates through ``RGLRUScan``, a ``torch.autograd.Function``
 whose forward also writes the fp32 carry entering every ``CHUNK`` steps and
@@ -40,7 +43,7 @@ import torch
 from . import _build
 from .ref import rglru_backward_reference, rglru_reference
 
-CHUNK = 16  # steps between the forward's checkpoints: the steps a thread loads at once
+CHUNK = 16  # steps between the forward's checkpoints: a warp's steps of a span
 # steps of the reverse scan's chunks, a multiple of CHUNK: recurrentgemma-9b's
 # training shape (B=2, S=1024, D=4096) gets 16 chunks a row, a thread a
 # channel, 131072 threads (~31 warps an SM, 16 of them resident at once).

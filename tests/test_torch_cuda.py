@@ -181,20 +181,34 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         rs.rglru_scan_backward(x, x, x, d, None, x, ckpt=torch.zeros(1, 8, 32, device=cuda))
 
 
-def test_mamba_backward_refuses_scratch_sized_for_another_block(cuda, monkeypatch):
-    """The partial sums of dBm and dCm are sized by ``CHANNELS``; a count
-    other than the kernel's blocks is refused before anything launches."""
-    x = torch.zeros(1, 8, 128, device=cuda)
-    a, bc, d = (torch.zeros(*s, device=cuda) for s in ((128, 8), (1, 8, 8), (128,)))
+@pytest.mark.parametrize("layout", ["channels", "summary", "chunk"])
+def test_mamba_backward_refuses_scratch_sized_for_another_block(cuda, monkeypatch, layout):
+    """The scratch (the dBm/dCm partials of every block of ``CHANNELS``, the
+    dA/dD partials of every chunk, the summaries of every ``SUMMARY_CHUNK``
+    steps) is sized by the wrapper; scratch sized for another layout, or a
+    chunk that is not a whole number of summaries, is refused before
+    anything launches."""
+    x = torch.zeros(1, 200, 128, device=cuda)
+    a, bc, d = (torch.zeros(*s, device=cuda) for s in ((128, 8), (1, 200, 8), (128,)))
     ckpt = ms.mamba_scan(x, x, a, bc, bc, d, checkpoints=True)[2]
+    ms.mamba_scan_backward(x, x, a, bc, bc, d, None, x, None, ckpt)  # the library is loaded
     k = ms.bwd_launches
-    monkeypatch.setattr(ms, "CHANNELS", ms.CHANNELS // 2)
+    if layout == "channels":
+        monkeypatch.setattr(ms, "CHANNELS", ms.CHANNELS // 2)
+    elif layout == "summary":
+        monkeypatch.setattr(ms, "SUMMARY_CHUNK", ms.SUMMARY_CHUNK * 2)
+    else:
+        monkeypatch.setattr(ms, "bwd_chunk", lambda *shape: ms.SUMMARY_CHUNK + ms.CHUNK)
     with pytest.raises(RuntimeError, match="cudaError 1"):
         ms.mamba_scan_backward(x, x, a, bc, bc, d, None, x, None, ckpt)
     assert ms.bwd_launches == k
 
 
-@pytest.mark.parametrize("b,s,d", [(2, 777, 512), (1, 64, 128), (4, 1000, 4096), (3, 5, 70)])
+# S off a warp's 16 steps and a span of 128 (777, 1000, 5, 100, 1, 64); D off
+# the 32-channel block (70, 33); B=1; recurrentgemma-9b's training shape (2 x
+# 1024) and prefill (4 x 3072)
+@pytest.mark.parametrize("b,s,d", [(2, 777, 512), (1, 64, 128), (4, 1000, 4096), (3, 5, 70),
+                                   (1, 100, 33), (2, 1024, 4096), (4, 3072, 4096), (2, 1, 40)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_rglru_kernel_matches_plain(cuda, b, s, d, dtype, with_h0):
@@ -211,6 +225,44 @@ def test_rglru_kernel_matches_plain(cuda, b, s, d, dtype, with_h0):
     wy, wh = ref.rglru_reference(x, r, i, log_a, h0)
     torch.testing.assert_close(y.float(), wy.float(), **SCAN_TOL[dtype])
     torch.testing.assert_close(hT, wh, **SCAN_TOL[dtype])
+    again = rs.rglru_scan(x, r, i, log_a, h0)  # the warps' carries fold in a fixed order
+    assert torch.equal(again[0], y) and torch.equal(again[1], hT)
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 777, 512), (4, 1000, 4096), (1, 100, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_forward_checkpoints_reproduce_its_y(cuda, b, s, d, dtype):
+    """Each group of CHUNK steps run again from the forward's checkpoint, one
+    step at a time, gives the forward's own y: the checkpoints are the carries
+    its steps used.  With r = 0 every decay is 1 and every operation of a step
+    is exact or correctly rounded in both (a h + b is h + b), so the plain
+    steps on the card give y bit for bit; with gates drawn at random, torch's
+    exp and unfused a h + b stay within 1e-6 of it over a group."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d + 2)
+    x = _randn(gen, (b, s, d), dtype)
+    i = torch.sigmoid(_randn(gen, (b, s, d), torch.float32)).to(dtype)
+    log_a = -torch.exp(_randn(gen, (d,), torch.float32) * 0.3) * 0.1
+    h0 = _randn(gen, (b, d), torch.float32)
+    for r, exact in ((torch.zeros_like(x), True),
+                     (torch.sigmoid(_randn(gen, (b, s, d), torch.float32)).to(dtype), False)):
+        y, hT, ckpt = rs.rglru_scan(x, r, i, log_a, h0, checkpoints=True)
+        assert torch.equal(y, rs.rglru_scan(x, r, i, log_a, h0)[0])
+        log_at = (8.0 * r.float()) * log_a
+        a = torch.exp(log_at)
+        bt = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_at), min=1e-12)) * (i * x).float()
+        y_again = torch.empty((b, s, d), dtype=torch.float32, device=cuda)
+        for g in range(ckpt.shape[1]):
+            h = ckpt[:, g]
+            for t in range(g * rs.CHUNK, min(s, (g + 1) * rs.CHUNK)):
+                h = a[:, t] * h + bt[:, t]
+                y_again[:, t] = h
+        if exact:
+            assert torch.equal(y_again.to(dtype), y)
+            assert torch.equal(y_again[:, -1], hT)
+        else:
+            torch.testing.assert_close(y_again.to(dtype).float(), y.float(),
+                                       atol=1e-6,
+                                       rtol=1e-5 if dtype == torch.float32 else 1e-2)
 
 
 # S off the 32-step tile (1000, 200, 33, 1); Din off the 64-channel block
@@ -246,10 +298,15 @@ def _grads_close(got, want, atol, rtol):
         assert bool(((g.float() - w.float()).abs() <= atol * scale + rtol * w.float().abs()).all())
 
 
-# S off the 32-step tile and the 16-step half (1000, 33, 7); Din off the
-# 64-channel block (200, 100); falcon-mamba-7b's Din 8192 at S 1024
+# S off the 16-step group and the 64-step summary (1000, 33, 7, 300); Din off
+# the 64-channel block (200, 100, 136); falcon-mamba-7b's Din 8192 at S 1024,
+# at B=4 (one chunk) and B=1 (two chunks of 512 and the first pass), and at a
+# ragged S (1000: chunks of 512 and 488); chunks of 64 steps where the grid is
+# small (300, 136: five chunks, the last ragged; S 7 and 33 under one chunk)
 @pytest.mark.parametrize("b,s,din,n", [(2, 512, 256, 16), (1, 200, 128, 8), (2, 1000, 1024, 16),
-                                       (1, 33, 200, 8), (4, 1024, 8192, 16), (2, 7, 100, 16)])
+                                       (1, 33, 200, 8), (4, 1024, 8192, 16), (2, 7, 100, 16),
+                                       (1, 1024, 8192, 16), (1, 1000, 8192, 16),
+                                       (1, 300, 136, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_mamba_backward_kernel_matches_plain_and_repeats_bitwise(cuda, b, s, din, n, dtype,
