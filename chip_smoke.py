@@ -44,6 +44,12 @@ It prints one JSON object per line, one line per phase:
            shape (B=1) and a ragged S.  The RG-LRU forward is also checked
            at recurrentgemma-9b's training shape (B=2, S=1024), and every
            RG-LRU forward case holds two runs bitwise equal (bitwise_repeat).
+           topk_compress runs on three inputs of 394 M fp32 at k = 10
+           (topk_input: random, lifecycle-like, ties at tau) and on bf16 at
+           k = 37, each bitwise against its plain version and a second run,
+           with the share of blocks that took the kernel's fallback
+           (fallback_share: the kernel's own record, which must equal its
+           plain model, topk_compress.fallback_blocks, on the same input).
            Head dims 112 (kimi-k2) and 160
            (stablelm-12b): flash forward at their prefill shapes, backward
            at their training shapes (B=2, S=1024) and decode over a
@@ -89,7 +95,11 @@ It prints one JSON object per line, one line per phase:
            step of each after a warm-up step: wall, device ms, idle share,
            launches, and the device time and share of the Mamba scan and its
            reverse scan (falcon-mamba-7b), of the flash backward's launches
-           and of the RG-LRU scan and its reverse scan (recurrentgemma-9b)
+           and of the RG-LRU scan and its reverse scan (recurrentgemma-9b);
+           and a "remat" line: one falcon-mamba-7b step under each of
+           ModelConfig.remat "none", "dots" and "full" (peak memory, step
+           ms, launches: each forward kernel twice under remat), every
+           gradient bitwise that of "none", "full" below "none" in memory
   train_stablelm  stablelm-12b at published widths cut to 24 of 40 layers
            (bf16, Adafactor with bf16 momentum, no store), through the
            Trainer train.main builds, for 4 steps of 2 x 1024 tokens; flash
@@ -112,8 +122,12 @@ It prints one JSON object per line, one line per phase:
            tokens), on a mirrored FileBlade: 3 steps with a full commit at
            v2 and a delta commit at v3, a crash, serving from v2 and v3,
            bitwise resume from the primary and from the mirror; each
-           commit's seconds split into checksum, copy, write and fsync; every
-           flash launch on the "wgmma" route
+           commit's seconds split into checksum, copy, write and fsync, and
+           the delta commit's compress_s beside topk_ms, the device time of
+           its top-k launches (replayed after the commit on the same
+           inputs, under torch.profiler, up to ten traces until one holds
+           every launch; null if none does);
+           every flash launch on the "wgmma" route
   time     the seconds of the whole run, the kernels' build included
   kernels  every kernel of the path: its launches over the phase that runs
            it (serve, train, train_recurrent, train_stablelm or lifecycle),
@@ -121,7 +135,8 @@ It prints one JSON object per line, one line per phase:
            case; the
            flash and decode entries also name their design (one kernel a
            dtype), decode adds its recurrentgemma-9b case, mamba its design,
-           the RG-LRU forward its design and its training-shape case, the
+           the RG-LRU forward its design and its training-shape case,
+           topk_compress its design, fallback share and other inputs, the
            flash backward at head_dim 256 and the two reverse scans their
            designs and per-launch times
 
@@ -198,6 +213,10 @@ FLASH_BWD_D256_DESIGN = (
     "bwd_reduce); warpgroup 0 computes S^T, warpgroup 1 dP^T over q tiles of 64 rows, P^T "
     "and dS^T exchanged through shared memory, each warpgroup keeping dK, dV of 128 columns; "
     "the dQ kernel on K/V tiles of 48 keys; CUDA cores (fp32)")
+TOPK_DESIGN = ("a warp a 1024-block, loaded 16 bytes a lane into padded shared rows; tau the "
+               "min(k+1, 32)-th lane max; the entries above tau compacted by ballot (64 at most) "
+               "and bitonic-sorted in the warp, then the lowest-index ties at tau; k > 32 or "
+               "an overflowing buffer take k rounds of argmax-and-clear in the same kernel")
 SCAN_BWD_DESIGN = {
     "mamba_bwd": "chunked reverse scan in two passes, 4 lanes a channel: pass 1 writes the "
                  "summary of every 64 steps right of the first chunk from a zero carry; pass 2, "
@@ -753,34 +772,69 @@ def rglru_bwd_case(torch, timer, name, *, B, S, D, dtype):
         0.0, chunk=rs.BWD_CHUNK, **timer.split(run, RGLRU_BWD_LAUNCHES))
 
 
-def topk_case(torch, timer, name, *, n, k, dtype="float32"):
-    """topk_compress on a delta the size of `n` elements: bit for bit
-    against the plain version (a stable sort, ties to the lowest index)."""
+def topk_input(torch, case, n, k=10):
+    """A delta of `n` fp32 elements for the top-k cases, made on the card from
+    a seed: "random", normal values of std 1e-3 (every block's magnitudes
+    distinct); "lifecycle", a delta commit's as the lifecycle makes them, the
+    difference of two bf16 states that differ in ~4 entries a 1024-block
+    (most blocks have fewer than k nonzeros); "ties", seven levels
+    (0, +-1e-3, +-2e-3, +-3e-3), so tau falls on a long run of ties."""
+    g = torch.Generator(device="cuda").manual_seed(k)
+    if case == "random":
+        return torch.randn(n, generator=g, device="cuda") * 1e-3
+    if case == "lifecycle":
+        base = torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
+        hit = torch.rand(n, generator=g, device="cuda") < 4 / 1024
+        step = torch.randn(n, generator=g, device="cuda") * 0.05 * hit
+        return (base.float() + step).to(torch.bfloat16).float() - base.float()
+    if case == "ties":
+        return torch.randint(-3, 4, (n,), generator=g, device="cuda").float() * 1e-3
+    raise ValueError(case)
+
+
+def topk_case(torch, timer, name, *, n, k, case="random", dtype="float32"):
+    """topk_compress on a delta the size of `n` elements (`topk_input`): bit
+    for bit against the plain version (a stable sort, ties to the lowest
+    index) and against a second run; the share of blocks that took the
+    kernel's fallback (the rounds), as a third run records it, held against
+    the plain model of that decision (`fallback_blocks`) on the same input."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_compress as tk
 
-    g = torch.Generator(device="cuda").manual_seed(k)
-    x = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(getattr(torch, dtype))
+    x = topk_input(torch, case, n, k).to(getattr(torch, dtype))
     got = tk.topk_compress(x, k)
+    again = tk.topk_compress(x, k)
+    *third, path = tk.topk_compress(x, k, paths=True)
     want = ref.topk_compress_reference(x, k)
     torch.cuda.synchronize()
-    exact = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
-    del got, want
-    nb = -(-n // 1024)
+
+    def bits(t):  # floats as integers, so that -0.0 and +0.0 differ
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    exact = [bool(torch.equal(bits(a), bits(b))) for a, b in zip(got, want)]
+    repeat = all(bool(torch.equal(bits(a), bits(b))) for a, b in zip(got, again))
+    repeat = repeat and all(bool(torch.equal(bits(a), bits(b))) for a, b in zip(got, third))
+    del got, again, third, want
+    model_agrees = bool(torch.equal(path, tk.fallback_blocks(x, k)))
+    nb = path.numel()
     item = torch.finfo(x.dtype).bits // 8
     nbytes = 2 * item * n + nb * k * 8  # x read, residual written, vals and idx written
     bound_ms, bound_by = bound(nbytes, float(k) * n, "float32")  # a compare per element a round
     mags = x.view(-1, 1024).abs() if n % 1024 == 0 else None
-    line = {"phase": "kernel", "kernel": "topk_compress", "case": name, "dtype": dtype, "n": n,
-            "k": k, "exact_vals_idx_residual": exact, "max_err": 0.0 if all(exact) else None,
-            "ok": all(exact), "kernel_ms": timer(lambda: tk.topk_compress(x, k)),
+    line = {"phase": "kernel", "kernel": "topk_compress", "case": name, "input": case,
+            "dtype": dtype, "n": n, "k": k, "exact_vals_idx_residual": exact,
+            "bitwise_repeat": repeat, "fallback_share": float(path.float().mean()),
+            "fallback_model_agrees": model_agrees,
+            "max_err": 0.0 if all(exact) else None, "ok": all(exact) and repeat and model_agrees,
+            "kernel_ms": timer(lambda: tk.topk_compress(x, k)),
             "plain_ms": timer(lambda: ref.topk_compress_reference(x, k), iters=3),
             "library_ms": timer(lambda: torch.topk(mags, k, dim=1)) if mags is not None else None,
             "library": "torch.topk of the [nb, 1024] magnitudes (selection only)",
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": float(k) * n}
     emit(line)
     if not line["ok"]:
-        raise AssertionError(f"topk_compress case {name}: exact {exact}")
+        raise AssertionError(f"topk_compress case {name}: exact {exact}, repeat {repeat}, "
+                             f"fallback model agrees {model_agrees}")
     return line
 
 
@@ -925,6 +979,16 @@ def phase_kernels(torch):
         D=4096, dtype="bfloat16")
     torch.cuda.empty_cache()
     lines["topk"] = topk_case(torch, timer, "llama3.2-3b embedding delta", n=LLAMA_EMBED, k=10)
+    torch.cuda.empty_cache()
+    lines["topk_lifecycle"] = topk_case(torch, timer, "a lifecycle-like delta (bf16 states, "
+                                        "~4 changes a block)", n=LLAMA_EMBED, k=10,
+                                        case="lifecycle")
+    torch.cuda.empty_cache()
+    lines["topk_ties"] = topk_case(torch, timer, "seven levels: ties at tau", n=LLAMA_EMBED,
+                                   k=10, case="ties")
+    torch.cuda.empty_cache()
+    topk_case(torch, timer, "bf16, ragged, k 37 (the rounds)", n=(1 << 24) + 5, k=37,
+              dtype="bfloat16")
     torch.cuda.empty_cache()
     g = torch.Generator(device="cuda").manual_seed(32)
     stream = torch.randint(0, 256, (1 << 30,), dtype=torch.uint8, device="cuda", generator=g)
@@ -1399,6 +1463,7 @@ def phase_train_recurrent(torch):
         del out
         torch.cuda.empty_cache()
         _step0_gradients(torch, arch, batch)
+    _remat_steps(torch, TRAIN_RECURRENT[0][0], TRAIN_RECURRENT[0][2])
     # where each model's step goes, and the share of the kernels redesigned
     # for it (falcon-mamba-7b: the Mamba scan and its reverse scan;
     # recurrentgemma-9b: the flash backward's launches, the RG-LRU scan and
@@ -1417,6 +1482,79 @@ def phase_train_recurrent(torch):
                     "rglru_fwd": ("rglru_scan_kernel",),
                     "rglru_bwd": ("rglru_bwd_pass", "sum_rows")})
     return total
+
+
+REMAT_MODES = ("none", "dots", "full")
+
+
+def _remat_steps(torch, arch, batch):
+    """ModelConfig.remat on the card: two training steps of the published
+    `arch` (bf16, Adafactor with bf16 momentum, seed 0, the first batch of
+    `batch` x TRAIN_SEQ tokens) under each of REMAT_MODES, set with
+    dataclasses.replace, in deterministic mode as the trainer runs its
+    steps: peak memory, each step's ms (the first from an empty allocator
+    cache), each kernel's launches in the first, its gradients bitwise
+    against "none"'s (kept on the host), and both losses equal.  The
+    recomputed forwards launch the forward kernels again; the backward
+    kernels run once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import OptConfig, TrainConfig, apply_opt, init_train_state
+    from repro_torch.training.trainer import deterministic_cuda
+    from repro_torch.tree import flatten_named, tree_map_named
+
+    counters = _kernel_counters()
+    tcfg = TrainConfig(opt=OptConfig(kind="adafactor", lr=1e-3, momentum_dtype="bfloat16"))
+    cfg = get_config(arch)
+    data = _train_batch(torch, cfg.vocab_size, batch)
+    line = {"phase": "train_recurrent", "what": "remat", "arch": arch, "layers": cfg.n_layers,
+            "global_batch": batch, "seq_len": TRAIN_SEQ, "modes": {}}
+    none_grads = None
+    for mode in REMAT_MODES:
+        model = DecoderLM(dataclasses.replace(cfg, remat=mode))
+        state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), tcfg)
+        params = state["params"]
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        step_ms, losses, peak = [], [], 0
+        for step in range(2):  # the first from an empty allocator cache, then a second
+            torch.cuda.reset_peak_memory_stats()
+            with deterministic_cuda(), torch.enable_grad():
+                t0 = time.perf_counter()
+                live = {n: p.detach().requires_grad_(True) for n, p in flatten_named(params)}
+                loss = model.loss(tree_map_named(lambda n, _: live[n], params), data)
+                grads = torch.autograd.grad(loss, list(live.values()))
+                float(apply_opt(params, list(grads), state["opt"], tcfg.opt, state["step"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated())  # before the check's copies
+            losses.append(float(loss.detach()))
+            if step == 0:
+                launches = {k: getattr(m, a) for k, (m, a) in counters.items() if getattr(m, a)}
+                if none_grads is None:
+                    none_grads = [g.cpu() for g in grads]
+                bitwise = all(torch.equal(g.view(torch.uint8), w.to(g.device).view(torch.uint8))
+                              for g, w in zip(grads, none_grads))
+            state["step"] += 1
+            del live, loss, grads
+        line["modes"][mode] = {"max_memory_allocated": peak,
+                               "step_ms": step_ms, "losses": losses,
+                               "grads_bitwise_none": bitwise, "launches": launches}
+        del state, params
+        torch.cuda.empty_cache()
+    del none_grads
+    emit(line)
+    per_step = next(n for a, _, _, n in TRAIN_RECURRENT if a == arch)  # forward launches a step
+    for mode, got in line["modes"].items():
+        again = 2 if mode != "none" else 1  # the forward, and once more in the backward
+        want = {k: n * again for k, n in per_step.items()}
+        want.update({f"{k}_bwd": n for k, n in per_step.items()})
+        if (not got["grads_bitwise_none"] or got["launches"] != want
+                or got["losses"] != line["modes"]["none"]["losses"]):
+            raise AssertionError(f"remat {arch} {mode}: {got}, launches want {want}")
+    if not (line["modes"]["full"]["max_memory_allocated"]
+            < line["modes"]["none"]["max_memory_allocated"]):
+        raise AssertionError(f"remat {arch}: full does not save memory: {line['modes']}")
 
 
 def _step0_gradients(torch, arch, batch, layers=None, phase="train_recurrent"):
@@ -1692,6 +1830,35 @@ def phase_train_parity(torch):
     return ran
 
 
+def _delta_topk_ms(torch, state, view, k):
+    """(ms, launches traced, traces taken): the device time of the delta
+    commit's top-k launches, replayed after it on the same inputs (each
+    floating leaf of `state` less `view`, the store's view of it, the state
+    at the full commit), under torch.profiler.  A trace that lost a launch
+    is taken again, up to ten times; ms is None if none was whole.  The
+    commit itself runs untraced, so its compress_s is the store's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.tree import flatten_named
+
+    deltas = [t.float().reshape(-1) - view[n].float().reshape(-1)
+              for n, t in flatten_named(state) if t.is_floating_point()]
+    torch.cuda.synchronize()
+    for tries in range(1, 11):
+        before = tk.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for d in deltas:
+                tk.topk_compress(d, k)
+            torch.cuda.synchronize()
+        topk = [(e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if "topk_kernel" in e.key]
+        traced = sum(c for _, c in topk)
+        if traced == tk.launches - before == len(deltas):
+            return sum(t for t, _ in topk), traced, tries
+    return None, traced, tries
+
+
 def phase_lifecycle(torch):
     """tests/test_system.py::test_full_lifecycle on the card; returns the
     launches of topk_compress and of the checksum kernel over the phase."""
@@ -1702,6 +1869,7 @@ def phase_lifecycle(torch):
     from repro_torch.kernels import topk_compress as tk
     from repro_torch.serving import ServeConfig, ServeEngine
     from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade
+    from repro_torch.statestore.checkpoint import DELTA_BLOCK
     from repro_torch.training import Trainer, TrainerConfig
     from repro_torch.tree import flatten_named, tree_map_named
 
@@ -1724,8 +1892,14 @@ def phase_lifecycle(torch):
         tr.init()
         tr.run(TrainerConfig(total_steps=2))
         at_v2 = {n: t.clone() for n, t in flatten_named(tr.state["params"])}
+        view = {n: t.clone() for n, t in flatten_named(tr.state) if t.is_floating_point()}
         tr.run(TrainerConfig(total_steps=3))
+        torch.cuda.synchronize()
+        line["compress_s"] = [c["compress_s"] for c in ckpt.commits if "compress_s" in c]
         launches = {"topk_compress": tk.launches, "fletcher32_wave": lc.launches}
+        line["topk_ms"], line["topk_launches_traced"], line["topk_traces"] = _delta_topk_ms(
+            torch, tr.state, view, max(1, int(DELTA_BLOCK * ckpt.delta_topk_frac)))
+        del view
         want = {n: t.clone() for n, t in flatten_named(tr.state)}
         line["losses"] = [m["loss"] for m in tr.metrics_log]
         line["commits"] = ckpt.commits
@@ -1954,6 +2128,14 @@ def main(argv=None) -> int:
                                    "bound_by", "library_ms", "library_live_ms")})
         if key == "mamba":
             kernels[-1]["design"] = MAMBA_DESIGN
+        if key == "topk":  # redesigned: the other inputs and the share of the rounds
+            kernels[-1].update(design=TOPK_DESIGN, fallback_share=c["fallback_share"],
+                               bitwise_repeat=c["bitwise_repeat"], at_inputs={
+                cases[f"topk_{i}"]["input"]: {
+                    k: cases[f"topk_{i}"][k] for k in ("case", "max_err", "bitwise_repeat",
+                                                       "fallback_share", "kernel_ms",
+                                                       "plain_ms", "bound_ms", "library_ms")}
+                for i in ("lifecycle", "ties")})
         if key == "rglru":  # redesigned: also at train_recurrent's own shape
             tr = cases["rglru_train"]
             kernels[-1].update(design=RGLRU_DESIGN, at_train_shape={

@@ -25,7 +25,13 @@ inputs made as `chip_smoke.py`'s kernel cases make them:
                  S=1024; and the other head dims: qwen1.5-0.5b's (B=4, MHA
                  16 heads, D=64, S=1024), recurrentgemma-9b's (B=4, 16/1,
                  D=256, S=3072, window 2048; SDPA with the window's mask)
-                 and D=32 at the smoke configs' width (B=4, 16 heads, S=1024).
+                 and D=32 at the smoke configs' width (B=4, 16 heads, S=1024);
+  topk           `topk_compress` at llama3.2-3b's embedding delta (394 M fp32,
+                 k = 10) on `chip_smoke.topk_input`'s three inputs (random,
+                 lifecycle, ties), with device time;
+  lifecycle      `chip_smoke.phase_lifecycle` on the checkout's package: its
+                 line (printed first) has the delta commit's compress_s and
+                 topk_ms, the device time of its top-k launches.
 
     python3 scripts/time_kernels.py --root path/to/checkout --case train_kernels
 
@@ -61,7 +67,7 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
-CASES = ("scan_forwards", "train_kernels", "flash_forwards")
+CASES = ("scan_forwards", "train_kernels", "flash_forwards", "topk", "lifecycle")
 # each kernel of a call whose device time is split out, by a substring of its name
 LAUNCHES = {"flash_fwd": ("flash_fwd_sm90",),
             "flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
@@ -83,11 +89,12 @@ def main(argv=None) -> int:
     sys.path.insert(1, str(HERE))
     import torch
 
-    from chip_smoke import Timer
+    from chip_smoke import Timer, topk_input
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import topk_compress as tk
 
     if not Path(ms.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"imported {ms.__file__}, not the checkout at {root}")
@@ -192,7 +199,21 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     out = {"root": str(root), "case": args.case,
            "card": card.strip().splitlines()[0] if card.strip() else None}
-    if args.case == "scan_forwards":
+    if args.case == "lifecycle":
+        from chip_smoke import phase_lifecycle
+        from repro_torch.kernels import _build
+
+        _build.build()  # as chip_smoke.py does first: no build inside a commit's timing
+        phase_lifecycle(torch)
+    elif args.case == "topk":
+        for case in ("random", "lifecycle", "ties"):
+            x = topk_input(torch, case, 128256 * 3072)  # llama3.2-3b's embedding
+            run = lambda: tk.topk_compress(x, 10)  # noqa: E731
+            out[f"topk_{case}_ms"] = {"ms": [timer(run) for _ in range(args.reps)],
+                                      "device_ms": timer.device(run)}
+            del x
+            torch.cuda.empty_cache()
+    elif args.case == "scan_forwards":
         out.update(mamba_bf16_B4_S1024_ms=mamba(4, 1024, 8192, 16, torch.bfloat16, False),
                    mamba_fp32_B4_S1000_h0_ms=mamba(4, 1000, 8192, 16, torch.float32, True),
                    rglru_bf16_B4_S3072_ms=rglru(4, 3072, 4096, torch.bfloat16),

@@ -55,7 +55,7 @@ class ModelConfig:
     embed_inputs: bool = True                 # False: frontend stub provides embeddings
     dtype: str = "bfloat16"
     # runtime knobs
-    remat: str = "none"                       # none | dots | full
+    remat: str = "none"                       # none | dots | save_dots | other: full
     scan_layers: bool = True
     attn_impl: str = "auto"                   # auto | cuda | torch
     attn_block_k: int = 512

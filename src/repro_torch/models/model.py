@@ -23,12 +23,13 @@ shares its buffers with the one it was given.  ``pos`` is a Python int.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..device import resolve_device
-from . import layers, moe
+from . import layers, moe, remat
 from .config import ModelConfig
 from .params import ParamSpec, abstract_params, init_params
 
@@ -149,9 +150,19 @@ class DecoderLM:
             x = moe.moe_apply(p["ffn"], x, cfg)
         return x
 
+    def _superblock(self, pattern, p, cache, mode, pos, x):
+        """One repeat of a group's layer pattern."""
+        for i, kind in enumerate(pattern):
+            c = cache.get(f"l{i}") if cache else None
+            x = self._apply_layer(kind, p[f"l{i}"], x, mode, c, pos)
+        return x
+
     def _run_blocks(self, params, x, mode, caches, pos):
         """caches: one stacked cache per group, filled (prefill) or read and
-        updated (decode) in place; None in train mode."""
+        updated (decode) in place; None in train mode.  A train-mode forward
+        that records a gradient runs each superblock under ``cfg.remat``
+        (``remat.run``), as the JAX package's ``_remat`` wraps it."""
+        remat_on = self.cfg.remat != "none" and mode == "train" and torch.is_grad_enabled()
         for gi, g in enumerate(self.groups):
             gp = params["blocks"][gi]
             gcache = caches[gi] if caches is not None else None
@@ -160,9 +171,11 @@ class DecoderLM:
                 c_r = None
                 if gcache is not None:
                     c_r = gcache if g.repeats == 1 else _index(gcache, r)
-                for i, kind in enumerate(g.pattern):
-                    c = c_r.get(f"l{i}") if c_r else None
-                    x = self._apply_layer(kind, gp_r[f"l{i}"], x, mode, c, pos)
+                if remat_on:
+                    x = remat.run(self.cfg.remat, functools.partial(
+                        self._superblock, g.pattern, gp_r, None, mode, pos), x)
+                else:
+                    x = self._superblock(g.pattern, gp_r, c_r, mode, pos, x)
         return x
 
     def _embed(self, params, batch):

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _topk_cases as topk_cases
+
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import DataConfig, SyntheticPipeline
 from repro_torch.kernels import decode_attention as da
@@ -708,19 +710,70 @@ def test_flash_autograd_on_the_card_runs_both_kernels(cuda):
         torch.testing.assert_close(a.grad, p.grad, atol=TOL[torch.float32], rtol=1e-2)
 
 
-@pytest.mark.parametrize("n,k", [(5000, 10), (1 << 20, 10), (3000, 37), (2049, 1024), (100, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_topk_kernel_equals_plain(cuda, n, k, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(n + k)
+def _bits(t):
+    """A tensor's bits: floats as integers of their width, so -0.0 != +0.0."""
+    if t.is_floating_point():
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return t
+
+
+def _planted(n, dtype, gen):
     x = _randn(gen, (n,), dtype)
     x[3:40] = 0
     x[100::97] = 2.5
     x[150::193] = -2.5
-    c = tk.launches
-    got = tk.topk_compress(x, k)
-    assert tk.launches == c + 1
-    for g, w in zip(got, ref.topk_compress_reference(x, k)):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    return x
+
+
+# the planted inputs at (n, k), then every case of tests/_topk_cases.py at each k
+TOPK_CASES = ([("planted", n, k) for n, k in [(5000, 10), (1 << 20, 10), (3000, 37),
+                                              (2049, 1024), (100, 1)]]
+              + [(case, None, k) for case in sorted(topk_cases.CASES) for k in topk_cases.KS])
+
+
+@pytest.mark.parametrize("case,n,k", TOPK_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_equals_plain(cuda, case, n, k, dtype):
+    """Bit for bit against the plain version, twice (a bitwise repeat), and on
+    the input shifted by one element (not 16-byte aligned: the kernel's
+    scalar loads and stores); a third call records each block's path, which
+    is the plain model's (``fallback_blocks``), with the same bits."""
+    if case == "planted":
+        x = _planted(n, dtype, torch.Generator(device=cuda).manual_seed(n + k))
+    else:
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        x = torch.from_numpy(topk_cases.make(case, name)).to(cuda).to(dtype)
+    for inp in (x, x[1:]):
+        c = tk.launches
+        got = tk.topk_compress(inp, k)
+        again = tk.topk_compress(inp, k)
+        *third, path = tk.topk_compress(inp, k, paths=True)
+        assert tk.launches == c + 3
+        for g, a, t, w in zip(got, again, third, ref.topk_compress_reference(inp, k)):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(_bits(g), _bits(w)) and torch.equal(_bits(a), _bits(g))
+            assert torch.equal(_bits(t), _bits(g))
+        assert torch.equal(path, tk.fallback_blocks(inp, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_returns_on_nan(cuda, dtype):
+    """NaN is outside the contract (deltas of finite state): the kernel must
+    still return, with k distinct positions inside each block, and the
+    finite entries it did not keep unchanged in the residual."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn(gen, (3 * 1024 + 5,), dtype)
+    x[::50] = float("nan")
+    x[1024:2048] = float("nan")
+    for k in (10, 64):
+        vals, idx, res = tk.topk_compress(x, k)
+        torch.cuda.synchronize()
+        assert idx.shape == (4, k) and bool(((idx >= 0) & (idx < 1024)).all())
+        assert all(len(set(row)) == k for row in idx.tolist())
+        xb = torch.nn.functional.pad(x, (0, 1024 - 5)).view(4, 1024)
+        kept = torch.zeros_like(xb, dtype=torch.bool).scatter(1, idx.long(), True)
+        same = (~kept).reshape(-1)[:x.numel()] & ~torch.isnan(x)
+        assert torch.equal(_bits(res[same]), _bits(x[same]))
 
 
 @pytest.mark.parametrize("nbytes", [0, 1, 3, 2047, 2048, 2049, 4096 + 7, (1 << 22) + 1])
@@ -768,6 +821,37 @@ def _replay_train_step(cuda):
         assert (fa.launches - f0, fb.launches - b0) == (cfg.n_layers, cfg.n_layers)
         outs.append([t.cpu() for _, t in flatten_named(state)] + [metrics["loss"].cpu()])
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b", "llama3.2-3b"])
+def test_remat_gradients_are_bitwise_none(cuda, arch):
+    """ModelConfig.remat on the kernel path (bf16 smoke widths, deterministic
+    mode): "dots", "save_dots" and "full" give the gradients of "none" bit
+    for bit; the recomputed superblocks launch each forward kernel again,
+    and each backward kernel runs once."""
+    cfg = get_smoke_config(arch)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticPipeline(
+        DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64)).batch_at(0).items()}
+    params = DecoderLM(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    counts = {"fwd": [(ms, "launches"), (rs, "launches"), (fa, "launches")],
+              "bwd": [(ms, "bwd_launches"), (rs, "bwd_launches"), (fb, "launches")]}
+    outs = {}
+    for mode in ("none", "dots", "save_dots", "full"):
+        model = DecoderLM(dataclasses.replace(cfg, remat=mode))
+        before = {k: [getattr(m, a) for m, a in v] for k, v in counts.items()}
+        with deterministic_cuda(), torch.enable_grad():
+            live = {n: p.detach().requires_grad_(True) for n, p in flatten_named(params)}
+            loss = model.loss(tree_map_named(lambda n, _: live[n], params), batch)
+            grads = torch.autograd.grad(loss, list(live.values()))
+        ran = {k: [getattr(m, a) - b for (m, a), b in zip(v, before[k])]
+               for k, v in counts.items()}
+        outs[mode] = [g.view(torch.uint8) for g in grads], ran
+    grads0, ran0 = outs["none"]
+    assert sum(ran0["fwd"]) > 0 and ran0["fwd"] == ran0["bwd"]
+    for mode, (grads, ran) in outs.items():
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads0)), mode
+        again = 1 if mode == "none" else 2
+        assert ran == {"fwd": [n * again for n in ran0["fwd"]], "bwd": ran0["bwd"]}, mode
 
 
 def test_device_checksums_are_accepted_by_the_blade(cuda, tmp_path):
