@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --only kernel,train_recurrent
     python3 chip_smoke.py --only kernel,serve
     python3 chip_smoke.py --only kernel,train_stablelm,train_parity
+    python3 chip_smoke.py --only mesh
 
 It prints one JSON object per line, one line per phase:
 
@@ -128,9 +129,21 @@ It prints one JSON object per line, one line per phase:
            inputs, under torch.profiler, up to ten traces until one holds
            every launch; null if none does);
            every flash launch on the "wgmma" route
+  mesh     the distribution layer: a one-rank NCCL process group (file://
+           store in a temporary directory) and a 1 x 1 ("data", "model")
+           mesh, against the mesh-less path in the same process: the decode
+           kernel's log-sum-exp and the flash forward at a q_offset (what a
+           larger mesh adds), llama3.2-3b training (28 layers, bf16, AdamW,
+           3 steps of 4 x 1024, fsdp rules) and serving (batch 4, prompt
+           1024, 32 new, decode rules) bitwise with equal launches, each
+           path's step, prefill and decode ms; kimi-k2's MoE block with
+           ep_a2a against dense (tests/test_torch_moe.py's bound);
+           pipeline_apply at one stage over llama's blocks; and the mesh
+           trainer's full and delta commits restored bitwise without a mesh
   time     the seconds of the whole run, the kernels' build included
   kernels  every kernel of the path: its launches over the phase that runs
-           it (serve, train, train_recurrent, train_stablelm or lifecycle),
+           it (serve, train, train_recurrent, train_stablelm or lifecycle,
+           plus the mesh phase's: launches_by_phase),
            by head dim for the attention kernels, and the numbers of its
            case; the
            flash and decode entries also name their design (one kernel a
@@ -162,7 +175,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_recurrent",
-          "train_stablelm", "train_parity", "lifecycle")
+          "train_stablelm", "train_parity", "lifecycle", "mesh")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
 SFU_EXP_PER_S = 132 * 16 * 1.98e9   # exponentials: 16 an SM a clock, 132 SMs, 1.98 GHz boost
@@ -1954,6 +1967,397 @@ def phase_lifecycle(torch):
     return launches
 
 
+MESH_TRAIN_STEPS = 3
+MESH_SERVE = dict(batch=4, prompt=1024, max_new=32)
+MESH_MOE = dict(num_experts=8, top_k=2, capacity_factor=8.0)
+MOE_TOL = dict(atol=2e-4, rtol=1e-3)                        # tests/test_torch_moe.py
+
+
+def _mesh_world(torch, tmp):
+    """A one-rank NCCL process group over a file:// store in `tmp`, and the
+    1 x 1 ("data", "model") mesh on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def _mesh_train(torch, mesh):
+    """llama3.2-3b at full width, 3 AdamW steps of 4 x 1024 tokens through
+    the mesh-less Trainer, then through a Trainer on the 1 x 1 mesh (fsdp
+    rules): losses, grad norms and every updated parameter bitwise, the flash
+    launches equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import OptConfig, TrainConfig, Trainer, TrainerConfig
+    from repro_torch.tree import flatten_named
+
+    cfg = get_config("llama3.2-3b", fsdp=True)
+    model = DecoderLM(cfg)
+    tcfg = TrainConfig(opt=OptConfig(kind="adamw"))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    rules = rules_for(cfg, mesh, kind="train")
+    runs = {}
+    for path in ("plain", "mesh"):
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fb.launches = 0
+        tr = (Trainer(model, tcfg, dcfg, seed=0, device="cuda") if path == "plain" else
+              Trainer(model, tcfg, dcfg, rules=rules, mesh=mesh, seed=0))
+        tr.init()
+        out = tr.run(TrainerConfig(total_steps=MESH_TRAIN_STEPS))
+        torch.cuda.synchronize()
+        params = {n: (t.to_local() if hasattr(t, "to_local") else t).to("cpu", copy=True)
+                  for n, t in flatten_named(tr.state["params"])}
+        runs[path] = {"losses": [m["loss"] for m in out["metrics"]],
+                      "grad_norms": [m["grad_norm"] for m in out["metrics"]],
+                      "step_ms": [m["seconds"] * 1e3 for m in out["metrics"]],
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "launches": {"flash_attention": fa.launches,
+                                   "flash_attention_bwd": fb.launches}, "params": params}
+        del tr, out
+        torch.cuda.empty_cache()
+    a, b = runs["plain"], runs["mesh"]
+    same_params = sorted(a["params"]) == sorted(b["params"]) and all(
+        torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+    line = {"arch": "llama3.2-3b", "layers": cfg.n_layers, "dtype": "bfloat16",
+            "optimizer": "adamw", "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "steps": MESH_TRAIN_STEPS, "rules": "rules_for(fsdp=True, kind='train')",
+            "bitwise": {"losses": a["losses"] == b["losses"],
+                        "grad_norms": a["grad_norms"] == b["grad_norms"],
+                        "params": same_params}}
+    for path, r in runs.items():
+        line[path] = {k: r[k] for k in ("losses", "grad_norms", "step_ms",
+                                        "max_memory_allocated", "launches")}
+        line[path]["median_steady_step_ms"] = float(np.median(r["step_ms"][1:]))
+    ok = all(line["bitwise"].values()) and a["launches"] == b["launches"] and \
+        a["launches"]["flash_attention"] == cfg.n_layers * MESH_TRAIN_STEPS
+    return line, ok, b["launches"]
+
+
+def _serve_logits(torch, eng, prompts, steps):
+    """The greedy loop of ServeEngine.generate on the engine's own params,
+    rules and mesh, keeping every step's logits (on the card)."""
+    from repro_torch.serving.engine import _whole
+
+    model = eng.model
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts.astype(np.int64), device="cuda")
+        logits, cache = model.prefill(eng.params, {"tokens": eng._tokens(toks)}, eng.rules,
+                                      eng.mesh)
+        logits = _whole(logits)
+        out = [logits.clone()]
+        for _ in range(steps):
+            nxt = torch.argmax(logits, dim=-1)
+            logits, cache = model.decode_step(eng.params, cache, eng._tokens(nxt), eng.rules,
+                                              eng.mesh)
+            logits = _whole(logits)
+            out.append(logits.clone())
+    return out
+
+
+def _decode_trace(torch, eng, prompts, steps=3):
+    """Three decode steps of `eng` after a prefill: wall ms a step, device ms
+    a step (torch.profiler's kernel times) and the card's idle share; and the
+    host functions that take the most time (cProfile over the same steps
+    again, self ms a step: cProfile's own cost inflates every one)."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import _whole
+
+    model = eng.model
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts.astype(np.int64), device="cuda")
+        logits, cache = model.prefill(eng.params, {"tokens": eng._tokens(toks)}, eng.rules,
+                                      eng.mesh)
+
+        def run():
+            nonlocal logits, cache
+            for _ in range(steps):
+                nxt = torch.argmax(_whole(logits), dim=-1)
+                logits, cache = model.decode_step(eng.params, cache, eng._tokens(nxt),
+                                                  eng.rules, eng.mesh)
+            torch.cuda.synchronize()
+
+        run()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        device = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / steps
+        prof_c = cProfile.Profile()
+        prof_c.enable()
+        run()
+        prof_c.disable()
+    stats = pstats.Stats(prof_c).stats
+    top = sorted(((f"{f[0].rsplit('/', 2)[-2:][-1]}:{f[1]}:{f[2]}", v[2] * 1e3 / steps)
+                  for f, v in stats.items()), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall, "device_ms": device,
+            "device_idle_share": max(0.0, 1 - device / wall),
+            "host_top_self_ms": [[k, v] for k, v in top]}
+
+
+def _mesh_serve(torch, mesh):
+    """llama3.2-3b at full width, batch 4, prompt 1024, 32 new tokens: the
+    mesh-less ServeEngine and one on the 1 x 1 mesh (decode rules), from the
+    same weights; prefill and every decode step's logits bitwise, the
+    kernels' launches equal; each path's prefill ms and decode ms a step
+    (ServeEngine.generate after the checked run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import DecoderLM
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = get_config("llama3.2-3b")
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    b, s, n = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_SERVE["max_new"]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    scfg = ServeConfig(batch_slots=b, max_new_tokens=n)
+    rules = rules_for(cfg, mesh, kind="decode")
+    runs = {}
+    for path in ("plain", "mesh"):
+        eng = (ServeEngine(model, params, scfg, device="cuda") if path == "plain" else
+               ServeEngine(model, params, scfg, rules, mesh))
+        fa.launches = da.launches = 0
+        logits = _serve_logits(torch, eng, prompts, n - 1)
+        launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
+        tokens, stats = eng.generate(prompts)
+        runs[path] = {"logits": logits, "launches": launches, "tokens": tokens,
+                      "prefill_ms": stats["prefill_s"] * 1e3,
+                      "decode_ms_per_step": stats["decode_s"] * 1e3 / stats["decode_steps"],
+                      "decode_trace": _decode_trace(torch, eng, prompts)}
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    a, m = runs["plain"], runs["mesh"]
+    bitwise = [bool(torch.equal(x, y)) for x, y in zip(a["logits"], m["logits"])]
+    line = {"arch": "llama3.2-3b", "layers": cfg.n_layers, "dtype": "bfloat16", "batch": b,
+            "prompt_len": s, "max_new": n, "rules": "rules_for(kind='decode')",
+            "prefill_logits_bitwise": bitwise[0], "decode_logits_bitwise": bitwise[1:],
+            "same_tokens": bool(np.array_equal(a["tokens"], m["tokens"]))}
+    for path, r in runs.items():
+        line[path] = {k: r[k] for k in ("launches", "prefill_ms", "decode_ms_per_step",
+                                        "decode_trace")}
+    line["mesh_minus_plain_decode_ms_per_step"] = (m["decode_ms_per_step"]
+                                                   - a["decode_ms_per_step"])
+    ok = all(bitwise) and line["same_tokens"] and a["launches"] == m["launches"] and \
+        a["launches"]["decode_attention"] == cfg.n_layers * (n - 1)
+    return line, ok, m["launches"]
+
+
+def _mesh_moe(torch, mesh):
+    """kimi-k2's MoE block (layer 1 of the 2-layer cut) at its published
+    widths, experts cut to 8 (top-2), fp32, capacity factor 8: ep_a2a on the
+    one-rank model axis against dense, within tests/test_torch_moe.py's
+    bound; both times (CUDA events, medians of 5), a report."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import moe
+    from repro_torch.models.params import (init_params, make_shardings, place, placements_of,
+                                           shard)
+
+    base = get_config("kimi-k2-1t-a32b", dtype="float32", n_layers=2)
+    m = dataclasses.replace(base.moe, **MESH_MOE)
+    cfg_a2a = dataclasses.replace(base, moe=dataclasses.replace(m, impl="ep_a2a"))
+    cfg_dense = dataclasses.replace(base, moe=dataclasses.replace(m, impl="dense"))
+    specs = moe.moe_specs(cfg_dense)
+    p = init_params(specs, torch.Generator(device="cuda").manual_seed(1))
+    x = torch.randn((4, 256, base.d_model), generator=torch.Generator(device="cuda")
+                    .manual_seed(2), device="cuda")
+    rules = rules_for(cfg_a2a, mesh, kind="train")
+    pm = place(p, make_shardings(specs, mesh, rules), mesh)
+    xm = shard(x, placements_of(x.shape, ("act_batch",), mesh, rules), mesh)
+    with torch.no_grad():
+        dense = lambda: moe.moe_apply(p, x, cfg_dense)  # noqa: E731
+        a2a = lambda: moe.moe_apply(pm, xm, cfg_a2a, rules, mesh)  # noqa: E731
+        want, got = dense(), a2a().to_local()
+        times = {}
+        for name, fn in (("dense", dense), ("ep_a2a", a2a)):
+            ts = []
+            for _ in range(5):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                ts.append(start.elapsed_time(end))
+            times[name] = float(np.median(ts))
+    err = float((got - want).abs().max())
+    close = bool(torch.allclose(got, want, **MOE_TOL))
+    line = {"arch": "kimi-k2-1t-a32b", "block": "MoE (layer 1 of 2)", "dtype": "float32",
+            "cut": "experts 384 -> 8, top-8 -> top-2; widths as published",
+            "tokens": 4 * 256, "impl": moe._impl(cfg_a2a, mesh), "max_abs_err": err,
+            "tol": MOE_TOL, "close": close, "dense_ms": times["dense"],
+            "ep_a2a_ms": times["ep_a2a"]}
+    del p, pm, x, xm
+    torch.cuda.empty_cache()
+    return line, close and line["impl"] == "ep_a2a"
+
+
+def _mesh_pipeline(torch):
+    """pipeline_apply at one stage ("stage" mesh of 1), 4 microbatches over
+    llama3.2-3b's 28 blocks (bf16, no grad), against the blocks applied to
+    the whole batch: within train_parity's bf16 bound of the scale."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import DecoderLM
+    from repro_torch.training.pipeline import pipeline_apply
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("llama3.2-3b")
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    smesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    x = (torch.randn((4, 1024, cfg.d_model), generator=torch.Generator(device="cuda")
+                     .manual_seed(3), device="cuda") * 0.02).to(cfg.torch_dtype)
+    stage = tree_map(lambda t: t[None], {"blocks": params["blocks"]})
+
+    def stage_fn(p, h):
+        return model._run_blocks(p, h, "train", None, None)
+
+    with torch.no_grad():
+        want = stage_fn({"blocks": params["blocks"]}, x)
+        fa.launches = 0
+        got = pipeline_apply(stage_fn, stage, x, smesh, axis="stage", n_micro=4)
+        launches = fa.launches
+    atol, rtol = TRAIN_PARITY_TOL["bfloat16"]
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    line = {"arch": "llama3.2-3b", "layers": cfg.n_layers, "dtype": "bfloat16", "stages": 1,
+            "n_micro": 4, "batch": 4, "seq_len": 1024, "max_abs_err": err, "scale": scale,
+            "tol": atol * scale, "flash_launches": launches}
+    del params, stage, x
+    torch.cuda.empty_cache()
+    return line, err <= atol * scale and launches == 4 * cfg.n_layers
+
+
+def _mesh_store(torch, mesh, tmp):
+    """The mesh trainer's commits: llama3.2-3b widths at depth 2 (the
+    lifecycle's model), a full commit at step 2 and a delta at step 3 from
+    the 1 x 1 mesh (rank 0 writes the gathered tensors), restored in a
+    mesh-less Trainer: the state at step 2 bitwise."""
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import log_checksum as lc
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.statestore import AsymStore, CheckpointManager, FileBlade
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_named
+
+    model, tcfg = _lifecycle_model(torch)
+    cfg = model.cfg
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=256)
+    blade = os.path.join(tmp, "blade")
+    rules = rules_for(cfg, mesh, kind="train")
+    tk.launches = lc.launches = 0
+    ckpt = CheckpointManager(AsymStore(FileBlade(blade)), full_every=2, delta_every=3)
+    tr = Trainer(model, tcfg, dcfg, ckpt=ckpt, rules=rules, mesh=mesh, seed=9)
+    tr.init()
+    tr.run(TrainerConfig(total_steps=2))
+    at2 = {n: t.to_local().clone() for n, t in flatten_named(tr.state)}
+    tr.run(TrainerConfig(total_steps=3))
+    launches = {"topk_compress": tk.launches, "fletcher32_wave": lc.launches}
+    kinds = [c["kind"] for c in ckpt.commits]
+    del tr, ckpt
+    back = Trainer(model, tcfg, dcfg, seed=9,
+                   ckpt=CheckpointManager(AsymStore(FileBlade(blade)), full_every=0))
+    start = back.resume()
+    got = dict(flatten_named(back.state))
+    bitwise = sorted(got) == sorted(at2) and all(torch.equal(got[n], at2[n]) for n in at2)
+    del back, got, at2
+    torch.cuda.empty_cache()
+    line = {"arch": "llama3.2-3b", "layers": 2, "commits": kinds, "resume_step": start,
+            "restored_bitwise": bitwise, "launches": launches}
+    return line, bitwise and start == 2 and kinds == ["full", "delta"] and all(
+        v > 0 for v in launches.values())
+
+
+def _mesh_kernel_checks(torch):
+    """The kernels as the mesh path calls them beyond a 1 x 1 mesh: decode
+    with its log-sum-exp (a length-sharded cache merges by it) against the
+    plain version's, and the flash forward on two halves of the query rows
+    at their q_offset (sequence-parallel) against one call over all rows."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((4, 24, 128), generator=g, device="cuda").to(dtype)
+        k = torch.randn((4, 8, 2048, 128), generator=g, device="cuda").to(dtype)
+        v = torch.randn((4, 8, 2048, 128), generator=g, device="cuda").to(dtype)
+        length = torch.tensor([2048, 1500, 1, 0], dtype=torch.int32, device="cuda")
+        o, lse = ops.decode_attention(q, k, v, length=length, return_lse=True)
+        _, want = ref.decode_attention_reference(q, k, v, length=length, return_lse=True)
+        live = length > 0
+        err = float((lse[live] - want[live]).abs().max())
+        out[f"decode_lse_{str(dtype)[6:]}"] = {"max_abs_err": err,
+                                               "empty_row_neg_inf": bool(torch.isinf(
+                                                   lse[~live]).all())}
+        qf = torch.randn((2, 24, 1024, 128), generator=g, device="cuda").to(dtype)
+        kf = torch.randn((2, 8, 1024, 128), generator=g, device="cuda").to(dtype)
+        vf = torch.randn((2, 8, 1024, 128), generator=g, device="cuda").to(dtype)
+        whole = ops.flash_attention(qf, kf, vf, causal=True)
+        halves = torch.cat([ops.flash_attention(qf[:, :, i:i + 512].contiguous(), kf, vf,
+                                                causal=True, q_offset=i) for i in (0, 512)], 2)
+        out[f"flash_q_offset_{str(dtype)[6:]}"] = {
+            "max_abs_err": float((halves.float() - whole.float()).abs().max())}
+    tol = {"bfloat16": TOL["bfloat16"], "float32": TOL["float32"]}
+    ok = all(v["max_abs_err"] <= 1e-3 and v["empty_row_neg_inf"]
+             for k, v in out.items() if k.startswith("decode")) and all(
+        v["max_abs_err"] <= tol[k.rsplit("_", 1)[1]] for k, v in out.items()
+        if k.startswith("flash"))
+    return out, ok
+
+
+def phase_mesh(torch):
+    """The distribution layer on the card: a one-rank NCCL process group and
+    a 1 x 1 mesh, held against the mesh-less path in the same process.
+    Returns each kernel's launches on the phase's mesh paths."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = _mesh_world(torch, tmp)
+        try:
+            checks, ok_checks = _mesh_kernel_checks(torch)
+            train, ok_train, train_launches = _mesh_train(torch, mesh)
+            serve, ok_serve, serve_launches = _mesh_serve(torch, mesh)
+            moe_line, ok_moe = _mesh_moe(torch, mesh)
+            pipe, ok_pipe = _mesh_pipeline(torch)
+            store, ok_store = _mesh_store(torch, mesh, tmp)
+        finally:
+            dist.destroy_process_group()
+    line = {"phase": "mesh", "mesh": {"shape": [1, 1], "axes": ["data", "model"],
+                                      "backend": "nccl"},
+            "kernel_checks": checks, "train": train, "serve": serve, "moe": moe_line,
+            "pipeline": pipe, "store": store, "seconds": time.perf_counter() - t0}
+    emit(line)
+    oks = {"kernel_checks": ok_checks, "train": ok_train, "serve": ok_serve, "moe": ok_moe,
+           "pipeline": ok_pipe, "store": ok_store}
+    if not all(oks.values()):
+        raise AssertionError(f"mesh: {oks}")
+    return {"flash_attention": train_launches["flash_attention"]
+            + serve_launches["flash_attention"],
+            "flash_attention_bwd": train_launches["flash_attention_bwd"],
+            "decode_attention": serve_launches["decode_attention"],
+            **store["launches"]}
+
+
 def _fail(reason: str) -> int:
     """An early exit: its reason on stderr and as one line on stdout, no result."""
     print(f"chip_smoke: {reason}", file=sys.stderr, flush=True)
@@ -2018,8 +2422,9 @@ def main(argv=None) -> int:
     stablelm = phase_train_stablelm(torch) if "train_stablelm" in only else None
     parity = phase_train_parity(torch) if "train_parity" in only else None
     lifecycle = phase_lifecycle(torch) if "lifecycle" in only else None
+    mesh = phase_mesh(torch) if "mesh" in only else None
     emit({"phase": "time", "seconds": time.perf_counter() - t_start})
-    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle):
+    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle, mesh):
         return 0  # a partial run checks what it ran and claims nothing more
 
     # each kernel's launches over the phase of the main path that runs it:
@@ -2092,8 +2497,11 @@ def main(argv=None) -> int:
         c = cases[key]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}.cu",
-                        "replaces": replaces, "launches": ran[name],
-                        "launches_from": from_phase[name], "case": c["case"],
+                        "replaces": replaces, "launches": ran[name] + mesh.get(name, 0),
+                        "launches_from": from_phase[name] + ("+mesh" if name in mesh else ""),
+                        "launches_by_phase": {from_phase[name]: ran[name],
+                                              **({"mesh": mesh[name]} if name in mesh else {})},
+                        "case": c["case"],
                         "max_abs_err": c["max_err"], "ms": c["kernel_ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],

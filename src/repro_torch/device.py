@@ -22,3 +22,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' (or --device cpu) "
             "to run on the CPU")
     return torch.device("cuda", 0 if dev.index is None else dev.index)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device of this rank's shards on a DeviceMesh: the current card
+    for a "cuda" mesh, else the mesh's device type."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -110,14 +110,21 @@ def decode_attention(
     *,
     length: Optional[torch.Tensor] = None,  # [B] int32 valid lengths
     sm_scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """One query per head over the first `length[b]` keys; output [B, Hq, D].
+
+    With `return_lse`, returns (out, lse [B, Hq] fp32), the log-sum-exp of
+    each row's scaled live logits (-inf for a row with no live key): the
+    kernel is the same, and `_lse` folds the per-split maxima and sums it
+    writes to its scratch, in PyTorch, after the launch.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel, or
     raise when the kernel does not take them: nothing falls back.
     """
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k, v, sm_scale=sm_scale, length=length)
+        return decode_attention_reference(q, k, v, sm_scale=sm_scale, length=length,
+                                          return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     b, hq, d = q.shape
@@ -145,7 +152,8 @@ def decode_attention(
         raise ValueError("decode_attention: empty KV cache")
     out = torch.empty_like(q)
     if q.numel() == 0:
-        return out
+        return (out, torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)) \
+            if return_lse else out
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         lib = _lib(route)
@@ -165,4 +173,33 @@ def decode_attention(
     global launches
     launches += 1
     launches_by_route[route] += 1
+    if return_lse:
+        chunk = None if route == "mma" else lib.repro_decode_chunk()
+        return out, _lse(part_ml, route, length, chunk)
     return out
+
+
+def _lse(part_ml: torch.Tensor, route: str, length: torch.Tensor,
+         chunk: Optional[int]) -> torch.Tensor:
+    """[B, Hq] log-sum-exp of the live logits from the split pass's scratch
+    part_ml [B, Hq, splits, 2] = (running max, sum of exponentials): the
+    "mma" kernel keeps maxima in the log2 domain and marks an empty split by
+    a zero sum; the "cuda_core" one keeps natural maxima and writes only the
+    chunks below ceil(length / chunk)."""
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    if route == "mma":
+        live = l > 0
+    else:
+        n_live = (length.clamp(min=0).to(torch.int64) + chunk - 1) // chunk
+        live = (torch.arange(m.shape[-1], device=m.device)[None, None, :]
+                < n_live[:, None, None])
+    m = torch.where(live, m, torch.full_like(m, -math.inf))
+    mx = m.amax(dim=-1, keepdim=True)
+    safe = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    w = torch.where(live, torch.exp2(m - safe) if route == "mma" else torch.exp(m - safe),
+                    torch.zeros_like(m))
+    total = (torch.where(live, l, torch.zeros_like(l)) * w).sum(-1)
+    mx = mx[..., 0]
+    if route == "mma":  # log2 domain -> natural
+        return (mx + torch.log2(total)) * math.log(2.0)
+    return mx + torch.log(total)

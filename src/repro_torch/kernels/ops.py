@@ -54,10 +54,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
                                   sm_scale=sm_scale, q_offset=q_offset)
 
 
-def decode_attention(q, k, v, *, length=None, sm_scale=None, impl="auto"):
+def decode_attention(q, k, v, *, length=None, sm_scale=None, impl="auto", return_lse=False):
+    """With `return_lse`, (out, lse [B, Hq] fp32): what merging attention
+    over chunks of a cache by their log-sum-exp needs."""
     if _resolve(impl, q) == "torch":
-        return ref.decode_attention_reference(q, k, v, sm_scale=sm_scale, length=length)
-    return _decode.decode_attention(q, k, v, length=length, sm_scale=sm_scale)
+        return ref.decode_attention_reference(q, k, v, sm_scale=sm_scale, length=length,
+                                              return_lse=return_lse)
+    return _decode.decode_attention(q, k, v, length=length, sm_scale=sm_scale,
+                                    return_lse=return_lse)
 
 
 def rglru_scan(x, r, i, log_a, h0=None, *, c=8.0, impl="auto", scan_dtype=None):

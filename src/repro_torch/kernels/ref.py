@@ -179,7 +179,11 @@ def decode_attention_reference(
     *,
     sm_scale: Optional[float] = None,
     length: Optional[torch.Tensor] = None,  # [B] valid KV lengths
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """With `return_lse`, returns (out, lse [B, Hq] fp32): each row's
+    log-sum-exp of its scaled live logits, what merging attention over
+    chunks of the cache needs."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -191,7 +195,10 @@ def decode_attention_reference(
         mask = torch.arange(s, device=q.device)[None, None, :] < length.to(q.device)[:, None, None]
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhk,bhkd->bhd", probs, vv).to(q.dtype)
+    out = torch.einsum("bhk,bhkd->bhd", probs, vv).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
 
 
 # ============================================================== linear scans

@@ -84,6 +84,9 @@ class ModelConfig:
             i += 1
         return tuple(kinds)
 
+    def param_bytes_per_token_flops(self):  # convenience for roofline
+        return None
+
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests."""

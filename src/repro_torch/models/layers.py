@@ -2,12 +2,24 @@
 the SwiGLU FFN, the RG-LRU recurrent block and the Mamba-1 block.
 
 Every mixer exposes ``<kind>_specs(cfg)`` -> {name: ParamSpec} and
-``<kind>_apply(params, x, cfg, mode, cache)`` -> (y, cache) where mode is
-"train" | "prefill" | "decode".  Unlike the JAX package, which returns new
-cache arrays, the port writes its caches in place and returns the dict it
-was given.  Their layout is the JAX one: ``{"k", "v"}`` ``[B, Hkv, L, hd]``
-per attention layer, ``{"h", "conv"}`` per recurrent layer (``h`` fp32,
-``conv`` the last inputs of the causal conv, in the model dtype).
+``<kind>_apply(params, x, cfg, mode, cache, rules=...)`` -> (y, cache) where
+mode is "train" | "prefill" | "decode".  Unlike the JAX package, which
+returns new cache arrays, the port writes its caches in place and returns
+the dict it was given.  Their layout is the JAX one: ``{"k", "v"}`` ``[B,
+Hkv, L, hd]`` per attention layer, ``{"h", "conv"}`` per recurrent layer
+(``h`` fp32, ``conv`` the last inputs of the causal conv, in the model
+dtype).
+
+On a device mesh the activations and weights are DTensors: each product
+runs on the shards (``mm``, ``spmd.linear``), the elementwise ops as
+DTensor operations, ``constrain`` puts the activations on the placements of
+their logical axes at the JAX package's points, and the kernels run on each
+rank's shards (``_attn_mesh``): attention on its own heads, or on its own
+query rows against the gathered keys and values (sequence-parallel), and
+decode over its own chunk of a length-sharded cache, the chunks merged by
+their log-sum-exp.  The recurrent mixers run data-parallel
+(``_mixer_mesh``).  A plain tensor takes the code it took before meshes
+existed.
 
 Where JAX's defaults differ from torch's, the port matches JAX by hand:
 ``jax.nn.gelu`` is the tanh approximation, and ``jax.nn.softplus`` is
@@ -23,9 +35,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from ..kernels import ops
+from . import spmd
 from .config import ModelConfig
-from .params import ParamSpec
+from .params import ParamSpec, constrain, placements_of
 
 Params = Dict[str, Any]
 
@@ -36,6 +51,12 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return ((xf * scale) * (1.0 + w.float())).to(x.dtype)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for x [..., k] and w [k, n]; on a mesh ``spmd.linear``, the
+    same product on each rank's shards."""
+    return spmd.linear(x, w) if isinstance(x, DTensor) else x @ w
 
 
 def norm_spec(cfg: ModelConfig) -> ParamSpec:
@@ -103,7 +124,7 @@ def prefill_max_len(cfg: ModelConfig, seq: int, window: Optional[int]) -> int:
 def attn_apply(
     p: Params, x: torch.Tensor, cfg: ModelConfig, mode: str,
     cache: Optional[Dict] = None, pos: Optional[int] = None,
-    window: Optional[int] = None,
+    window: Optional[int] = None, rules: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Attention block with residual.  `pos` (decode) is the position of the
     token, one Python int for the whole batch (prompts are equal-length).
@@ -114,7 +135,12 @@ def attn_apply(
     keys in ring order (position p in slot p % W).  decode writes slot
     `pos` (`pos % W` for a ring) in place and attends over the first
     min(pos + 1, L) slots.
+
+    On a mesh (`x` a DTensor), `rules` places q, k, v, the cache and the
+    output (see ``_attn_mesh``).
     """
+    if isinstance(x, DTensor):
+        return _attn_mesh(p, x, cfg, rules or {}, mode, cache, pos, window)
     B, S, _ = x.shape
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     q, k, v = _heads(h, p["wq"]), _heads(h, p["wk"]), _heads(h, p["wv"])
@@ -168,6 +194,164 @@ def attn_apply(
     return x + y.view(B, S, -1), new_cache
 
 
+def _kv_for_heads(kv: torch.Tensor, kv_off: int, q_off: int, hq: int, group: int
+                  ) -> torch.Tensor:
+    """The KV heads of query heads [q_off, q_off + hq) (GQA: head h reads
+    KV head h // group), out of `kv` [B, Hkv_local, S, D] whose first head
+    is KV head `kv_off`, laid out so the kernels' own mapping (local query
+    head i -> KV head i // (hq / heads)) finds them."""
+    lo, hi = q_off // group, (q_off + hq - 1) // group + 1
+    a, b = lo - kv_off, hi - kv_off
+    if a < 0 or b > kv.shape[1]:
+        raise ValueError(f"query heads [{q_off}, {q_off + hq}) need KV heads [{lo}, {hi}), "
+                         f"this rank holds [{kv_off}, {kv_off + kv.shape[1]})")
+    if (q_off % group == 0 and hq % group == 0) or b - a == 1:
+        return kv if (a, b) == (0, kv.shape[1]) else kv[:, a:b].contiguous()
+    idx = torch.tensor([(q_off + i) // group - kv_off for i in range(hq)], device=kv.device)
+    return kv.index_select(1, idx)
+
+
+def _heads_mesh(h: DTensor, w: DTensor, rules: Dict, heads_axis: str) -> DTensor:
+    """``_heads`` on a mesh: the product [B, S, H * hd] placed on whole heads
+    (its batch, sequence and heads by their activation rules) before it is
+    viewed as [B, S, H, hd], so no rank holds a slice of a head."""
+    B, S, _ = h.shape
+    _, H, K = w.shape
+    # the rows each rank projects: its batch, and its sequence under act_seq
+    h = constrain(h, rules, "act_batch", "act_seq")
+    pl = placements_of((B, S, H, K), ("act_batch", "act_seq", heads_axis), h.device_mesh, rules)
+    y = spmd.linear(h, spmd.flatten(w, 1, 2), want=pl)
+    return spmd.to_placements(y, pl).view(B, S, H, K).permute(0, 2, 1, 3)
+
+
+def _seq_replicated(t: DTensor) -> DTensor:
+    """`t` [B, H, S, D] with its sequence dim gathered on every rank."""
+    return spmd.to_placements(t, [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                                  for p in t.placements])
+
+
+def _flash_mesh(q: DTensor, k: DTensor, v: DTensor, cfg: ModelConfig, window):
+    """The flash kernel on this rank's batch rows and query heads, or its
+    query rows (q sharded on S: sequence-parallel) against all keys at
+    `q_offset` = its first row.  Returns this rank's output [B, H, S, D]
+    shard, and its roped keys and values over every position (for the
+    prefill cache)."""
+    split = spmd.split_dims(q)
+    ql = spmd.local_part(q, split)
+    kg, vg = _seq_replicated(k), _seq_replicated(v)
+    kl, vl = spmd.local_part(kg, split), spmd.local_part(vg, split)
+    q0 = spmd.shard_offset(q, 2)
+    ql = rope(ql, torch.arange(q0, q0 + ql.shape[2], device=ql.device), cfg.rope_theta)
+    kl = rope(kl, torch.arange(kl.shape[2], device=kl.device), cfg.rope_theta)
+    group = q.shape[1] // k.shape[1]
+    heads = (spmd.shard_offset(kg, 1), spmd.shard_offset(q, 1), ql.shape[1], group)
+    out = ops.flash_attention(ql.contiguous(), _kv_for_heads(kl.contiguous(), *heads),
+                              _kv_for_heads(vl.contiguous(), *heads), causal=True,
+                              window=window, q_offset=q0, impl=cfg.attn_impl,
+                              block_k=cfg.attn_block_k)
+    return out, kl, vl
+
+
+def _fill_cache_mesh(cache: Dict, kl: torch.Tensor, vl: torch.Tensor, S: int, window) -> None:
+    """Prefill's cache writes on this rank's shard of each cache DTensor (its
+    batch rows and KV heads are those of `kl`; its slots may be a chunk of
+    the length): the same slots as the plain path's."""
+    for name, src in (("k", kl), ("v", vl)):
+        dst = cache[name]
+        dl = dst.to_local()
+        if dl.shape[:2] != src.shape[:2]:
+            raise ValueError(f"cache {name} shard {tuple(dl.shape)} does not hold the rows and "
+                             f"heads of the keys {tuple(src.shape)}")
+        L, l0, n_loc = dst.shape[2], spmd.shard_offset(dst, 2), dl.shape[2]
+        if window is not None:
+            tail = src[:, :, -L:]
+            n = tail.shape[2]
+            full = F.pad(tail, (0, 0, 0, L - n)) if n < L else torch.roll(tail, S % L, dims=2)
+            dl.copy_(full[:, :, l0:l0 + n_loc])
+        else:
+            n = max(0, min(min(S, L) - l0, n_loc))
+            dl[:, :, :n] = src[:, :, l0:l0 + n]
+            dl[:, :, n:] = 0
+
+
+def _decode_mesh(q: DTensor, k: DTensor, v: DTensor, cfg: ModelConfig, cache: Dict,
+                 pos: int, window) -> DTensor:
+    """One decode step on this rank's shard of the cache: the rank that holds
+    slot `pos` writes the new key and value; each rank attends over its own
+    slots with its own query heads; where the cache is sharded on its length,
+    the ranks' outputs merge by their log-sum-exp (``spmd.merge_by_lse``).
+    Returns this rank's output [B, H, 1, D] shard."""
+    mesh = q.device_mesh
+    ck, cv = cache["k"], cache["v"]
+    kv_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                  for p in ck.placements)
+    k, v = (spmd.to_placements(t, kv_pl) for t in (k, v))
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    positions = torch.full((ql.shape[0], 1), pos, dtype=torch.int64, device=ql.device)
+    ql = rope(ql, positions, cfg.rope_theta)
+    kl = rope(kl, positions, cfg.rope_theta)
+    ckl, cvl = ck.to_local(), cv.to_local()
+    L, l0, n_loc = ck.shape[2], spmd.shard_offset(ck, 2), ckl.shape[2]
+    slot = pos % window if (window is not None and L == window) else pos
+    slot = min(slot, L - 1)  # as jax.lax.dynamic_update_slice clamps
+    if l0 <= slot < l0 + n_loc:
+        ckl[:, :, slot - l0] = kl[:, :, 0].to(ckl.dtype)
+        cvl[:, :, slot - l0] = vl[:, :, 0].to(cvl.dtype)
+    n_live = max(0, min(min(pos + 1, L) - l0, n_loc))
+    length = torch.full((ql.shape[0],), n_live, dtype=torch.int32, device=ql.device)
+    heads = (spmd.shard_offset(ck, 1), spmd.shard_offset(q, 1), ql.shape[1],
+             q.shape[1] // ck.shape[1])
+    kk, vv = _kv_for_heads(ckl, *heads), _kv_for_heads(cvl, *heads)
+    qd = ql[:, :, 0].contiguous()
+    len_dims = spmd.dims_sharding(ck, 2)
+    if len_dims:
+        o, lse = ops.decode_attention(qd, kk, vv, length=length, impl=cfg.attn_impl,
+                                      return_lse=True)
+        o = spmd.merge_by_lse(o, lse, length > 0, mesh, len_dims)
+    else:
+        o = ops.decode_attention(qd, kk, vv, length=length, impl=cfg.attn_impl)
+    return o[:, :, None, :]
+
+
+def _attn_mesh(p: Params, x: DTensor, cfg: ModelConfig, rules: Dict, mode: str,
+               cache: Optional[Dict], pos: Optional[int], window: Optional[int]):
+    """attn_apply on a mesh: the products as DTensor operations, q, k, v and
+    the output constrained as in the JAX package, the kernels on shards."""
+    B, S, d = x.shape
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q = _heads_mesh(h, p["wq"], rules, "act_heads")
+    k = _heads_mesh(h, p["wk"], rules, "act_kv_heads")
+    v = _heads_mesh(h, p["wv"], rules, "act_kv_heads")
+    if cfg.qkv_bias:
+        q = q + p["bq"][None, :, None, :]
+        k = k + p["bk"][None, :, None, :]
+        v = v + p["bv"][None, :, None, :]
+    # TP over heads when divisible, else sequence-parallel attention
+    # (rules map act_heads/act_seq per arch x mesh; see launch.mesh.rules_for)
+    q = constrain(q, rules, "act_batch", "act_heads", "act_seq")
+    k = constrain(k, rules, "act_batch", "act_kv_heads", "act_seq")
+    v = constrain(v, rules, "act_batch", "act_kv_heads", "act_seq")
+    new_cache = None
+    if mode == "decode":
+        if cache is None or pos is None:
+            raise ValueError("decode needs a cache and a position")
+        out = _decode_mesh(q, k, v, cfg, cache, pos, window)
+        new_cache = cache
+    else:
+        out, kl, vl = _flash_mesh(q, k, v, cfg, window)
+        if mode == "prefill":
+            if cache is None:
+                raise ValueError("prefill needs the cache to fill")
+            _fill_cache_mesh(cache, kl, vl, S, window)
+            new_cache = cache
+    # [B, S, H * D] from the shards, so no rank views a slice of a head
+    o = out.to(x.dtype).permute(0, 2, 1, 3).reshape(out.shape[0], out.shape[2], -1)
+    pl = [Shard({0: 0, 1: 2, 2: 1}[p.dim]) if isinstance(p, Shard) else p for p in q.placements]
+    o = spmd.from_shards(o, q.device_mesh, pl, (B, S, q.shape[1] * q.shape[3]))
+    y = mm(o, spmd.flatten(p["wo"], 0, 1))
+    return x + constrain(y, rules, "act_batch"), new_cache
+
+
 def attn_cache_shape(cfg: ModelConfig, batch: int, max_len: int, window: Optional[int]):
     """{"k", "v"} -> (shape, dtype) of one layer's decode cache."""
     L = min(window, max_len) if window is not None else max_len
@@ -187,10 +371,11 @@ def ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, rules: Optional[Dict] = None
+              ) -> torch.Tensor:
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    y = (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
-    return x + y
+    y = mm(F.silu(mm(h, p["w_gate"])) * mm(h, p["w_up"]), p["w_down"])
+    return x + constrain(y, rules or {}, "act_batch")
 
 
 # ---------------------------------------------------------------- RG-LRU
@@ -253,6 +438,8 @@ def rglru_apply(
     place with the closed-form single step.  In train mode the scan is
     differentiable: ``ops.rglru_scan`` takes the forward and reverse-scan
     kernels on the card, their plain versions on the CPU."""
+    if isinstance(x, DTensor):
+        return _mixer_mesh(rglru_apply, p, x, cfg, mode, cache)
     B, S, _ = x.shape
     nb = p["w_r"].shape[0]
     dr = p["w_x"].shape[1]
@@ -290,6 +477,38 @@ def rglru_apply(
     cache["h"].copy_(hT)
     cache["conv"].copy_(new_conv)
     return x + y, cache
+
+
+def _mixer_mesh(apply, p: Params, x: DTensor, cfg: ModelConfig, mode: str,
+                cache: Optional[Dict]):
+    """A recurrent mixer on a mesh, data-parallel only: each rank runs
+    `apply` (the plain code and kernels) on its batch rows with the weights
+    gathered whole, so the ranks along every other mesh dim repeat the same
+    work.  The cache leaves (placed by name, channels over "model") are
+    gathered the same way for the step and each rank's shard written back."""
+    mesh = x.device_mesh
+    rows = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+                 for q in x.placements)
+    xr = x if tuple(x.placements) == rows else x.redistribute(mesh, rows)
+    split = spmd.split_dims(xr)
+    whole = (Replicate(),) * mesh.ndim
+    pl = {k: spmd.local_part(w if tuple(w.placements) == whole else w.redistribute(mesh, whole),
+                             split) for k, w in p.items()}
+    cl = None
+    if cache is not None:
+        cl = {k: (c if tuple(c.placements) == rows else c.redistribute(mesh, rows)).to_local()
+              for k, c in cache.items()}
+    y, _ = apply(pl, spmd.local_part(xr, split), cfg, mode, cache=cl)
+    if cache is not None:
+        for k, c in cache.items():
+            mine = c.to_local()
+            if mine.data_ptr() != cl[k].data_ptr():
+                src = cl[k]
+                for d in range(1, c.dim()):
+                    n0 = spmd.shard_offset(c, d)
+                    src = src.narrow(d, n0, mine.shape[d])
+                mine.copy_(src)
+    return spmd.from_shards(y, mesh, rows, x.shape), cache
 
 
 def rglru_cache_shape(cfg: ModelConfig, batch: int):
@@ -331,6 +550,8 @@ def mamba_apply(
     place with the closed-form single step.  In train mode the scan is
     differentiable: ``ops.mamba_scan`` takes the forward and reverse-scan
     kernels on the card, their plain versions on the CPU."""
+    if isinstance(x, DTensor):
+        return _mixer_mesh(mamba_apply, p, x, cfg, mode, cache)
     N = cfg.ssm.d_state
     di = p["w_in"].shape[1] // 2
     dtr = p["w_dt"].shape[0]

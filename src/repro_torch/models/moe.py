@@ -11,12 +11,19 @@ One param layout, three ways to run it, as in the JAX package:
     grouped by expert, each device computes its slice of every expert's
     width, and a psum completes the down projection.
 
-The port has no device mesh yet (the distribution layer, ROADMAP M2), so
-``moe_apply`` resolves ``ep_a2a`` and ``tp_sort`` to ``dense``, as the
-reference does without a mesh.  ``_ep_a2a_local`` and ``_tp_sort_local`` are
-the per-device bodies at world size 1 (``WORLD``), where their collectives
-(``_all_to_all``, ``_all_gather``, ``_psum``) are the identity; the tests
-hold them to ``dense`` at capacity factor 8, where no token is dropped.
+``moe_apply`` chooses among them as the reference does: ``dense`` without
+a mesh or without a ``"model"`` mesh dim, ``tp_sort`` when the experts do
+not divide the model dim.  ``_ep_a2a_local`` and ``_tp_sort_local`` are
+the per-rank bodies of the reference's ``shard_map``s, over the model
+dim's process group: the token exchange is ``all_to_all_single`` of
+``torch.distributed.nn.functional`` (its gradient is the exchange back),
+and the gather of the routed slices and the psum of the width slices are
+DTensor redistributions (Shard -> Replicate, Partial -> Replicate), whose
+gradients follow the model's convention that a replicated activation's
+gradient is whole on every rank.  With no group (a single device) the
+bodies run at world size 1, where each collective is the identity; the
+tests hold them to ``dense`` at capacity factor 8, where no token is
+dropped.
 
 Two choices differ from the JAX code in form, not in value:
 
@@ -42,10 +49,12 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from . import spmd
 from .config import ModelConfig
-from .layers import norm_spec, rmsnorm
-from .params import ParamSpec
+from .layers import mm, norm_spec, rmsnorm
+from .params import ParamSpec, constrain
 
 Params = Dict[str, Any]
 
@@ -129,22 +138,50 @@ def _ranks_within_expert(fe: torch.Tensor, num_experts: int):
     return order, se, rank
 
 
-# The collectives of the expert-parallel bodies over the model axis.  The
-# port runs one device (world size 1, index 0) until the distribution layer
-# (ROADMAP M2) gives it torch.distributed; there each is the identity.
-WORLD, INDEX = 1, 0
+class _ModelAxis:
+    """The model mesh dim as the bodies see it: its size, this rank's index
+    and its collectives.  ``_ModelAxis(None)`` is a single device (size 1,
+    index 0), where every collective is the identity."""
 
+    def __init__(self, mesh=None, token_placements=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.size, self.index, self.dim = 1, 0, None
+            return
+        self.dim = mesh.mesh_dim_names.index("model")
+        self.size = mesh.size(self.dim)
+        self.index = mesh.get_coordinate()[self.dim]
+        self.group = mesh.get_group(self.dim)
+        self.tokens = token_placements  # the local token block's placements
 
-def _all_to_all(x: torch.Tensor) -> torch.Tensor:
-    return x
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x [size, ...]: row j goes to rank j; returns what each rank sent
+        this one, by sender."""
+        if self.size == 1:
+            return x
+        from torch.distributed.nn.functional import all_to_all_single
 
+        out = torch.empty_like(x)
+        return all_to_all_single(out, x.contiguous(), group=self.group)
 
-def _all_gather(x: torch.Tensor) -> torch.Tensor:
-    return x
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's x [t, d], concatenated in rank order."""
+        if self.size == 1:
+            return x
+        pl = list(self.tokens)
+        pl[self.dim] = Shard(0)
+        full = DTensor.from_local(x, self.mesh, pl, run_check=False)
+        pl[self.dim] = Replicate()
+        return full.redistribute(self.mesh, pl).to_local()
 
-
-def _psum(x: torch.Tensor) -> torch.Tensor:
-    return x
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        pl = [Replicate()] * self.mesh.ndim
+        pl[self.dim] = Partial()
+        full = DTensor.from_local(x, self.mesh, pl, run_check=False)
+        pl[self.dim] = Replicate()
+        return full.redistribute(self.mesh, pl).to_local()
 
 
 def _dispatch(xt: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig):
@@ -175,45 +212,105 @@ def _combine(ret: torch.Tensor, slot, tok, weight, t: int, dtype) -> torch.Tenso
     return y.index_add_(0, tok, yflat.to(dtype))
 
 
-def _ep_a2a_local(xt, w_router, w_gate, w_up, w_down, *, cfg: ModelConfig):
-    """One device's body of expert parallelism: xt [t, d] local tokens,
-    the experts sharded over WORLD devices, this one INDEX."""
+def _ep_a2a_local(xt, w_router, w_gate, w_up, w_down, *, cfg: ModelConfig,
+                  axis: Optional[_ModelAxis] = None):
+    """One rank's body of expert parallelism: xt [t, d] local tokens
+    (replicated over the model axis), the experts sharded over it."""
+    ax = axis or _ModelAxis()
     E = cfg.moe.num_experts
-    e_loc = E // WORLD
+    e_loc = E // ax.size
     t = xt.shape[0]
-    # each device routes a distinct 1/WORLD token slice when the count divides
-    slice_tokens = t >= WORLD and t % WORLD == 0
-    tj = t // WORLD if slice_tokens else t
-    xj = xt[INDEX * tj:(INDEX + 1) * tj] if slice_tokens else xt
+    # Each model-rank routes a distinct 1/size token slice when the local
+    # token count divides; tiny decode batches fall back to replicated
+    # routing (every rank dispatches all local tokens; correct, redundant).
+    slice_tokens = t >= ax.size and t % ax.size == 0
+    tj = t // ax.size if slice_tokens else t
+    xj = xt[ax.index * tj:(ax.index + 1) * tj] if slice_tokens else xt
+    if not slice_tokens and ax.size > 1 and torch.is_grad_enabled() and xt.requires_grad:
+        raise NotImplementedError("ep_a2a: replicated routing (local tokens not a multiple of "
+                                  "the model axis) computes every token on every rank; its "
+                                  "gradient is not defined here")
     send, cap, slot, tok, weight = _dispatch(xj, w_router, cfg)
-    send = send.reshape(WORLD, e_loc * cap, xt.shape[1])
-    recv = _all_to_all(send)  # [WORLD, e_loc * cap, d]: each peer's slots for my experts
-    xe = recv.reshape(WORLD, e_loc, cap, -1).transpose(0, 1).reshape(e_loc, WORLD * cap, -1)
+    send = send.reshape(ax.size, e_loc * cap, xt.shape[1])
+    recv = ax.all_to_all(send)  # [size, e_loc * cap, d]: each peer's slots for my experts
+    xe = recv.reshape(ax.size, e_loc, cap, -1).transpose(0, 1).reshape(e_loc, ax.size * cap, -1)
     ye = _expert_ffn(xe, w_gate, w_up, w_down)
-    back = ye.reshape(e_loc, WORLD, cap, -1).transpose(0, 1).reshape(WORLD, e_loc * cap, -1)
-    ret = _all_to_all(back).reshape(E * cap, -1)
+    back = ye.reshape(e_loc, ax.size, cap, -1).transpose(0, 1).reshape(ax.size, e_loc * cap, -1)
+    ret = ax.all_to_all(back).reshape(E * cap, -1)
     yj = _combine(ret, slot, tok, weight, tj, xt.dtype)
-    return _all_gather(yj) if slice_tokens else yj
+    return ax.all_gather(yj) if slice_tokens else yj
 
 
-def _tp_sort_local(xt, w_router, w_gate, w_up, w_down, *, cfg: ModelConfig):
-    """One device's body of TP-MoE: every expert's width sharded over
-    WORLD devices (w_gate, w_up [E, d, f / WORLD], w_down [E, f / WORLD, d])."""
+def _tp_sort_local(xt, w_router, w_gate, w_up, w_down, *, cfg: ModelConfig,
+                   axis: Optional[_ModelAxis] = None):
+    """One rank's body of TP-MoE: every expert's width sharded over the
+    model axis (w_gate, w_up [E, d, f / size], w_down [E, f / size, d])."""
+    ax = axis or _ModelAxis()
     E = cfg.moe.num_experts
     buf, cap, slot, tok, weight = _dispatch(xt, w_router, cfg)
-    ye = _psum(_expert_ffn(buf.reshape(E, cap, -1), w_gate, w_up, w_down))
+    ye = ax.psum(_expert_ffn(buf.reshape(E, cap, -1), w_gate, w_up, w_down))
     return _combine(ye.reshape(E * cap, -1), slot, tok, weight, xt.shape[0], xt.dtype)
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The MoE block with residual: x [B, S, d] -> [B, S, d]."""
+def _impl(cfg: ModelConfig, mesh) -> str:
+    impl = cfg.moe.impl
+    if impl in ("ep_a2a", "tp_sort") and (mesh is None or "model" not in mesh.mesh_dim_names):
+        impl = "dense"
+    if impl == "ep_a2a" and cfg.moe.num_experts % mesh.size(
+            mesh.mesh_dim_names.index("model")) != 0:
+        impl = "tp_sort"  # too few experts for EP: fall back to TP-MoE
+    return impl
+
+
+def _moe_mesh(p: Params, xt: DTensor, cfg: ModelConfig, mesh, impl: str) -> DTensor:
+    """The routed experts on a mesh, as the reference's shard_map: tokens
+    sharded over every mesh dim but "model" and replicated over it; the
+    router replicated; the experts (ep_a2a) or their width (tp_sort) sharded
+    over "model", or everything replicated (dense)."""
+    dim = mesh.mesh_dim_names.index("model") if "model" in mesh.mesh_dim_names else None
+    tok_pl = [Shard(0) if i != dim and xt.shape[0] % mesh.size(i) == 0 else Replicate()
+              for i in range(mesh.ndim)]
+    if dim is not None:
+        tok_pl[dim] = Replicate()
+    rep = [Replicate()] * mesh.ndim
+
+    def on(pl_dim, t):  # t placed on `pl_dim` over model (None: replicated)
+        pl = list(rep)
+        if pl_dim is not None:
+            pl[dim] = Shard(pl_dim)
+        return t.redistribute(mesh, pl)
+
+    x = xt.redistribute(mesh, tok_pl)
+    w_by = {"ep_a2a": (None, 0, 0, 0), "tp_sort": (None, 2, 2, 1),
+            "dense": (None, None, None, None)}[impl]
+    names = ("w_router", "w_gate", "w_up", "w_down")
+    ws = [on(d, p[n]) for d, n in zip(w_by, names)]
+    split = spmd.split_dims(x, *ws) + ([dim] if impl == "ep_a2a" and mesh.size(dim) > 1 else [])
+    xl = spmd.local_part(x, split)
+    wl = [spmd.local_part(w, split) for w in ws]
+    if impl == "dense":
+        y = _dense_moe(dict(zip(names, wl)), xl, cfg)
+    else:
+        body = _ep_a2a_local if impl == "ep_a2a" else _tp_sort_local
+        y = body(xl, *wl, cfg=cfg, axis=_ModelAxis(mesh, tok_pl))
+    return DTensor.from_local(y, mesh, tok_pl, run_check=False, shape=xt.shape,
+                              stride=xt.stride())
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, rules: Optional[Dict] = None,
+              mesh=None) -> torch.Tensor:
+    """The MoE block with residual: x [B, S, d] -> [B, S, d].  Without a
+    mesh (a plain `x`) every impl runs dense, as in the reference."""
     m = cfg.moe
     B, S, d = x.shape
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     xt = h.reshape(B * S, d)
-    # ep_a2a and tp_sort need a mesh's model axis; without one the
-    # reference, and so the port, runs dense
-    y = _dense_moe(p, xt, cfg).reshape(B, S, d)
+    if isinstance(x, DTensor):
+        y = _moe_mesh(p, xt, cfg, x.device_mesh, _impl(cfg, mesh)).reshape(B, S, d)
+    else:
+        # ep_a2a and tp_sort need a mesh's model axis; without one the
+        # reference, and so the port, runs dense
+        y = _dense_moe(p, xt, cfg).reshape(B, S, d)
     if m.num_shared:
-        y = y + (F.silu(h @ p["ws_gate"]) * (h @ p["ws_up"])) @ p["ws_down"]
-    return x + y
+        y = y + mm(F.silu(mm(h, p["ws_gate"])) * mm(h, p["ws_up"]), p["ws_down"])
+    return x + constrain(y, rules or {}, "act_batch")

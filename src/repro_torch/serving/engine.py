@@ -9,6 +9,12 @@ Batching model: fixed decode slots; a `generate` call admits up to
 `batch_slots` equal-length prompts, prefill fills the cache, then all
 slots decode in lock-step with per-sequence EOS masking.  The engine runs
 on the card unless it is given ``device="cpu"``.
+
+On a mesh (``ServeEngine(model, params, cfg, rules, mesh)``) the params are
+placed by ``rules``, the prompts and each step's tokens are sharded on the
+batch axes, the caches are DTensors placed by leaf name, and every rank
+runs the same loop; each step's logits are gathered whole, so every rank
+picks the same tokens.
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
-from ..device import resolve_device
+from ..device import mesh_device, resolve_device
 from ..models.model import DecoderLM
+from ..models.params import make_shardings, place, placements_of, shard
 from ..statestore import CheckpointManager
 from ..tree import tree_map
 
@@ -40,30 +48,51 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 class ServeEngine:
-    def __init__(self, model: DecoderLM, params, cfg: ServeConfig, device=None):
+    def __init__(self, model: DecoderLM, params, cfg: ServeConfig, rules=None, mesh=None,
+                 device=None):
         self.model = model
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.rules = rules or {}
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh_device(mesh)
+        self.params = self._place(params)
         self.version: Optional[int] = None
+
+    def _place(self, params):
+        params = tree_map(lambda t: t.to(self.device), params)
+        if self.mesh is None:
+            return params
+        return place(params, make_shardings(self.model.param_specs(), self.mesh, self.rules),
+                     self.mesh)
+
+    def _tokens(self, toks: torch.Tensor) -> torch.Tensor:
+        """[B, ...] tokens, on a mesh sharded on the batch axes."""
+        if self.mesh is None:
+            return toks
+        return shard(toks, placements_of(toks.shape, ("act_batch",), self.mesh, self.rules),
+                     self.mesh)
 
     # ----------------------------------------------------------- store reads
     @classmethod
     def load_from_store(cls, model: DecoderLM, ckpt: CheckpointManager,
                         cfg: ServeConfig, version: Optional[int] = None,
-                        device=None) -> "ServeEngine":
+                        rules=None, mesh=None, device=None) -> "ServeEngine":
         """Pin a committed version (params only) — a multi-version reader."""
-        device = resolve_device(device)
+        device = resolve_device(device) if mesh is None else mesh_device(mesh)
         v, state = ckpt.restore({"params": model.abstract()}, version=version, device=device)
-        eng = cls(model, state["params"], cfg, device)
+        eng = cls(model, state["params"], cfg, rules, mesh, device)
         eng.version = v
         return eng
 
     def reload(self, ckpt: CheckpointManager, version: Optional[int] = None) -> int:
         v, state = ckpt.restore({"params": self.model.abstract()}, version=version,
                                 device=self.device)
-        self.params, self.version = state["params"], v
+        self.params, self.version = self._place(state["params"]), v
         return v
 
     # -------------------------------------------------------------- generate
@@ -88,7 +117,9 @@ class ServeEngine:
         with torch.inference_mode():
             toks = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
             t0 = time.perf_counter()
-            logits, cache = self.model.prefill(self.params, {"tokens": toks})
+            logits, cache = self.model.prefill(self.params, {"tokens": self._tokens(toks)},
+                                               self.rules, self.mesh)
+            logits = _whole(logits)
             finite = torch.isfinite(logits).all()
             _sync(self.device)
             t1 = time.perf_counter()
@@ -108,7 +139,9 @@ class ServeEngine:
                 steps += 1
                 if cfg.eos_id >= 0 and bool(done.all()):
                     break
-                logits, cache = self.model.decode_step(self.params, cache, nxt)
+                logits, cache = self.model.decode_step(self.params, cache, self._tokens(nxt),
+                                                       self.rules, self.mesh)
+                logits = _whole(logits)
                 finite &= torch.isfinite(logits).all()
             _sync(self.device)
             t2 = time.perf_counter()

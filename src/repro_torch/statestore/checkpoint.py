@@ -123,15 +123,22 @@ class CheckpointManager:
         self.store.append_step_log(rec)
 
     # ----------------------------------------------------------------- save
-    def maybe_save(self, step: int, state: Tree, meta=None) -> Optional[str]:
-        """Policy entry point: full/delta cadence."""
+    def due(self, step: int) -> Optional[str]:
+        """The commit the cadence makes at `step`: "full", "delta" or None."""
         if self.full_every and step % self.full_every == 0 and step > 0:
-            self.save_full(step, state, meta)
             return "full"
         if self.delta_every and step % self.delta_every == 0 and step > 0:
-            self.save_delta(step, state, meta)
             return "delta"
         return None
+
+    def maybe_save(self, step: int, state: Tree, meta=None) -> Optional[str]:
+        """Policy entry point: full/delta cadence."""
+        kind = self.due(step)
+        if kind == "full":
+            self.save_full(step, state, meta)
+        elif kind == "delta":
+            self.save_delta(step, state, meta)
+        return kind
 
     def _snapshot(self, objects: List[Tuple[str, torch.Tensor]], rec: Dict[str, Any]
                   ) -> Tuple[Dict[str, int], Dict[str, torch.Tensor]]:

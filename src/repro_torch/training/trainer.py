@@ -16,6 +16,14 @@ also needs ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which it reads when it
 first starts: that is the entry point's to set, before its first CUDA work
 (``launch/train.py`` does); without it PyTorch refuses the step's products
 in deterministic mode.
+
+On a mesh (``Trainer(..., rules, mesh)``) every rank runs the same loop: the
+state is placed on the mesh at `init` and at `resume` (``models.params
+.place``), each rank of the batch axes draws its own slice of the global
+batch (``n_hosts`` = their size, ``host_id`` = its index), and the commits
+write the full tensors from one writer, rank 0, after every rank has
+gathered them: the store holds the bytes a mesh-less commit would, so a
+version restores in a reader with or without a mesh.
 """
 
 from __future__ import annotations
@@ -28,12 +36,17 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..data.pipeline import DataConfig, SyntheticPipeline
-from ..device import resolve_device
+from ..device import mesh_device, resolve_device
 from ..models.model import DecoderLM
+from ..models.params import logical_to_spec, place
 from ..statestore import CheckpointManager
-from .train_step import TrainConfig, abstract_train_state, init_train_state, make_train_step
+from ..tree import tree_map
+from .train_step import (TrainConfig, abstract_train_state, init_train_state, make_train_step,
+                         state_shardings)
 
 CUBLAS_WORKSPACE = ":4096:8"
 
@@ -94,17 +107,37 @@ class Trainer:
         tcfg: TrainConfig,
         data_cfg: DataConfig,
         ckpt: Optional[CheckpointManager] = None,
+        rules: Optional[Dict] = None,
+        mesh=None,
         seed: int = 0,
         device=None,
     ):
         self.model = model
         self.tcfg = tcfg
-        self.pipeline = SyntheticPipeline(data_cfg)
         self.ckpt = ckpt
+        self.rules = rules or {}
+        self.mesh = mesh
         self.seed = seed
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._batch_dims: List[int] = []
+        else:
+            self.device = mesh_device(mesh)
+            part = (logical_to_spec(("act_batch",), self.rules) or (None,))[0]
+            axes = (part,) if isinstance(part, str) else tuple(part or ())
+            self._batch_dims = [mesh.mesh_dim_names.index(a) for a in axes
+                                if a in mesh.mesh_dim_names]
+            n_hosts, host_id = 1, 0
+            for i in self._batch_dims:  # major first, as DTensor splits a dim
+                n_hosts *= mesh.size(i)
+                host_id = host_id * mesh.size(i) + mesh.get_coordinate()[i]
+            if data_cfg.global_batch % n_hosts:
+                raise ValueError(f"global batch {data_cfg.global_batch} is not a multiple of "
+                                 f"the {n_hosts} ranks of the batch axes {axes}")
+            data_cfg = dataclasses.replace(data_cfg, n_hosts=n_hosts, host_id=host_id)
+        self.pipeline = SyntheticPipeline(data_cfg)
         self.watchdog = StragglerWatchdog()
-        self._step_fn = make_train_step(model, tcfg)
+        self._step_fn = make_train_step(model, tcfg, self.rules, mesh)
         self.state: Optional[Dict[str, Any]] = None
         self.metrics_log: List[Dict[str, float]] = []
         self._preempted = False
@@ -112,7 +145,37 @@ class Trainer:
     # ----------------------------------------------------------------- setup
     def init(self) -> None:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.state = init_train_state(self.model, gen, self.tcfg)
+        self.state = self._place(init_train_state(self.model, gen, self.tcfg))
+
+    def _place(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The state on the mesh (every rank holds it whole; each keeps its
+        shards), or as it is without one."""
+        if self.mesh is None:
+            return state
+        return place(state, state_shardings(self.model, self.tcfg, self.rules, self.mesh),
+                     self.mesh)
+
+    def _batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """This rank's slice of the global batch of `step` (the whole batch
+        without a mesh), as DTensors sharded on the batch axes on a mesh."""
+        local = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in self.pipeline.batch_at(step).items()}
+        if self.mesh is None:
+            return local
+        pl = [Shard(0) if i in self._batch_dims else Replicate() for i in range(self.mesh.ndim)]
+        return {k: DTensor.from_local(v, self.mesh, pl, run_check=False) for k, v in local.items()}
+
+    def _writer(self) -> bool:
+        """Whether this rank writes the store: the only rank without a mesh,
+        rank 0 with one (SWMR)."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _full(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The state with every DTensor gathered whole (every rank takes
+        part; only the writer uses it)."""
+        if self.mesh is None:
+            return state
+        return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, state)
 
     def install_preemption_handler(self, sig=signal.SIGTERM) -> None:
         """SIGTERM -> finish the current step, commit, exit cleanly."""
@@ -126,32 +189,36 @@ class Trainer:
     def run(self, cfg: TrainerConfig, start_step: Optional[int] = None) -> Dict[str, Any]:
         if self.state is None:
             raise RuntimeError("call init() or resume() first")
-        start = int(start_step if start_step is not None else self.state["step"])
+        start = int(start_step if start_step is not None else self._step())
         with deterministic_cuda() if self.device.type == "cuda" else contextlib.nullcontext():
             self._steps(start, cfg.total_steps)
-        return {"final_step": int(self.state["step"]), "metrics": self.metrics_log,
+        return {"final_step": self._step(), "metrics": self.metrics_log,
                 "straggler_events": self.watchdog.events}
 
     def _steps(self, start: int, stop: int) -> None:
         for step in range(start, stop):
-            if self.ckpt:
+            if self.ckpt and self._writer():
                 self.ckpt.log_step(step, {"seed": self.seed})
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.pipeline.batch_at(step).items()}
+            batch = self._batch(step)
             t0 = time.monotonic()
             self.state, metrics = self._step_fn(self.state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.monotonic() - t0
             self.watchdog.observe(step, dt)
             self.metrics_log.append({"step": step, **metrics, "seconds": dt})
-            if self.ckpt:
-                self.ckpt.maybe_save(step + 1, self.state,
-                                     {"seed": self.seed, "kind": "train_state"})
+            if self.ckpt and self.ckpt.due(step + 1):
+                full = self._full(self.state)
+                if self._writer():
+                    self.ckpt.maybe_save(step + 1, full,
+                                         {"seed": self.seed, "kind": "train_state"})
+                del full
             if self._preempted:
                 if self.ckpt:
-                    self.ckpt.save_full(step + 1, self.state, {"seed": self.seed,
-                                                               "preempted": True})
-                    self.ckpt.wait()
+                    full = self._full(self.state)
+                    if self._writer():
+                        self.ckpt.save_full(step + 1, full, {"seed": self.seed,
+                                                             "preempted": True})
+                        self.ckpt.wait()
                 break
         if self.ckpt:
             self.ckpt.wait()
@@ -165,5 +232,10 @@ class Trainer:
             raise RuntimeError("resume needs a checkpoint manager")
         full_v, _ = self.ckpt.resume_plan()
         template = abstract_train_state(self.model, self.tcfg)
-        _, self.state = self.ckpt.restore(template, version=full_v, device=self.device)
-        return int(self.state["step"])
+        _, state = self.ckpt.restore(template, version=full_v, device=self.device)
+        self.state = self._place(state)
+        return self._step()
+
+    def _step(self) -> int:
+        step = self.state["step"]
+        return int(step.to_local() if isinstance(step, DTensor) else step)

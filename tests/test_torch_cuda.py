@@ -147,6 +147,34 @@ def test_decode_kernel_matches_plain(cuda, b, hq, hkv, s, d, lengths, dtype):
     torch.testing.assert_close(out[live].float(), want[live].float(), atol=TOL[dtype], rtol=1e-2)
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
+    (4, 24, 8, 2048, 128, (2048, 1500, 1, 0)),
+    (4, 16, 1, 2048, 256, (0, 1, 2048, 33)),
+    (4, 64, 8, 4096, 112, (260, 0, 1, 4096)),
+    (4, 32, 8, 4096, 160, "edges"),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_log_sum_exp_matches_plain(cuda, b, hq, hkv, s, d, lengths, dtype):
+    """With return_lse the kernel's output is unchanged and its row
+    log-sum-exp (folded from its splits' maxima and sums) is the plain
+    version's within 1e-3; a row with no visible key gives -inf."""
+    if lengths == "edges":
+        ns = da.n_split(b, hq, hkv, d, cuda)
+        lengths = (ns * 16, ns * 16 + 1, ns * 31 - 1, ns)
+    gen = torch.Generator(device=cuda).manual_seed(s + d + 1)
+    q = _randn(gen, (b, hq, d), dtype)
+    k = _randn(gen, (b, hkv, s, d), dtype)
+    v = _randn(gen, (b, hkv, s, d), dtype)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    out, lse = da.decode_attention(q, k, v, length=length, return_lse=True)
+    assert torch.equal(out, da.decode_attention(q, k, v, length=length))
+    _, want = ref.decode_attention_reference(q, k, v, length=length, return_lse=True)
+    live = length > 0
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+    assert torch.isinf(lse[~live]).all() and (lse[~live] < 0).all()
+    torch.testing.assert_close(lse[live], want[live], atol=1e-3, rtol=0)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 96, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
