@@ -10,6 +10,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --only kernel,serve
     python3 chip_smoke.py --only kernel,train_stablelm,train_parity
     python3 chip_smoke.py --only mesh
+    python3 chip_smoke.py --only build,nvm
 
 It prints one JSON object per line, one line per phase:
 
@@ -140,6 +141,29 @@ It prints one JSON object per line, one line per phase:
            ep_a2a against dense (tests/test_torch_moe.py's bound);
            pipeline_apply at one stage over llama's blocks; and the mesh
            trainer's full and delta commits restored bitwise without a mesh
+  nvm      the single-blade AsymNVM machine (repro_torch.core): blades whose
+           arenas live on the card, each step run again on a CPU blade in the
+           same process, and the arena and mirror digests (sha256), the
+           clocks and the Stats held equal after every step: the quickstart
+           (examples/quickstart.py part 1: a 16 MB blade with a mirror,
+           1000 B+Tree inserts, crash, reboot, recovery, find(77)); Table 3's
+           44 cells (benchmarks/table3_throughput.py: the eight structures
+           under the six variants, less its SKIP) on 64 MB blades at a
+           fifteenth of its 30000 preloaded keys and 3000 ops, and bptree x rcb
+           and hashtable x r at its full size, each with its virtual KOPS,
+           its wall seconds on the card and on the CPU, the card's copies
+           to and from the host and the host's seconds in log decode and
+           apply (obs.profile); recovery (tears at a watermark slot with
+           keep 0 and 8, a tear mid-flush, a 400-transaction log replayed
+           with the checksum memo cleared, mirror promotion, a lagging
+           mirror); torch.profiler over a cut hashtable x r cell (device ms
+           by kernel, idle share); then the blade's two kernels (K1
+           fletcher64_segments, K2 apply_runs, csrc/nvm_log.cu) against
+           their plain versions, bitwise, and a second run, on a 64 MB
+           span of 1e5 segments and a 64 MB arena with a mirror and 1e5
+           runs, a third overlapping: kernel_ms the whole call (its host
+           planning included), launch_ms the launch alone on a table
+           planned before (both CUDA events after the L2 flush)
   time     the seconds of the whole run, the kernels' build included
   kernels  every kernel of the path: its launches over the phase that runs
            it (serve, train, train_recurrent, train_stablelm or lifecycle,
@@ -151,7 +175,8 @@ It prints one JSON object per line, one line per phase:
            the RG-LRU forward its design and its training-shape case,
            topk_compress its design, fallback share and other inputs, the
            flash backward at head_dim 256 and the two reverse scans their
-           designs and per-launch times
+           designs and per-launch times; the blade's two kernels, with the
+           nvm phase's launches (they replace no TPU kernel)
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
 script exits non-zero without it.  It also exits non-zero, with no result,
@@ -175,7 +200,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_recurrent",
-          "train_stablelm", "train_parity", "lifecycle", "mesh")
+          "train_stablelm", "train_parity", "lifecycle", "mesh", "nvm")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
 SFU_EXP_PER_S = 132 * 16 * 1.98e9   # exponentials: 16 an SM a clock, 132 SMs, 1.98 GHz boost
@@ -2358,6 +2383,509 @@ def phase_mesh(torch):
             **store["launches"]}
 
 
+# ----------------------------------------------------------- the simulator
+# Table 3 (benchmarks/table3_throughput.py): the eight structures under the six
+# front-end variants, less the cells the paper leaves empty
+NVM_STRUCTURES = ("queue", "stack", "hashtable", "skiplist", "bst", "bptree", "mv_bst", "mv_bpt")
+NVM_VARIANTS = ("sym", "symb", "naive", "r", "rc", "rcb")
+NVM_SKIP = {("hashtable", "symb"), ("hashtable", "rcb"), ("queue", "rc"), ("stack", "rc")}
+NVM_CLASSES = {"stack": "RemoteStack", "queue": "RemoteQueue", "hashtable": "RemoteHashTable",
+               "skiplist": "RemoteSkipList", "bst": "RemoteBST", "bptree": "RemoteBPTree",
+               "mv_bst": "RemoteMVBST", "mv_bpt": "RemoteMVBPTree"}
+NVM_TABLE3 = (30000, 3000)   # Table 3's preload and ops a cell
+NVM_CUT = (2000, 200)        # the 44 cells here: a fifteenth of each
+NVM_FULL = (("bptree", "rcb"), ("hashtable", "r"))  # also at Table 3's full size
+NVM_BLADE = 1 << 26          # NVMBackend's default 64 MB arena, as Table 3's blades
+NVM_DESIGN = {
+    "fletcher64_segments": "a warp a segment (a block a segment above 16 KB); words assembled "
+                           "from the two aligned words around them by a funnel shift, bytes "
+                           "past the segment masked; each lane's sums folded mod 2^32-1, then "
+                           "the warp's (and the block's) reduced sums added",
+    "apply_runs": "the host merges the runs' intervals; a run alone in its interval copies "
+                  "its bytes as they are, the bytes of shared intervals are numbered "
+                  "compactly: pass 1 an atomicMax of the run index into an int32 owner a "
+                  "byte, pass 2 copies each byte from its owner to the arena and every "
+                  "mirror; a warp a run"}
+
+
+def _nvm_fe(core, variant, cache_bytes):
+    """benchmarks/common.py's VARIANTS."""
+    F = core.FEConfig
+    return {"sym": lambda: F(symmetric=True),
+            "symb": lambda: F(symmetric=True, sym_batch=True, batch_ops=1024),
+            "naive": F.naive, "r": F.r, "rc": lambda: F.rc(cache_bytes=cache_bytes),
+            "rcb": lambda: F.rcb(batch_ops=1024, cache_bytes=cache_bytes)}[variant]()
+
+
+def _nvm_cell(device, structure, variant, preload, n_ops):
+    """One Table 3 cell as benchmarks/common.py's build_structure and
+    run_write_workload drive it, on a blade on `device`: (blade, front end,
+    structure, virtual ns of the ops)."""
+    import random
+
+    from repro_torch import core
+    from repro_torch.core import structures
+
+    node = {"bst": 32, "bptree": 256, "skiplist": 136, "mv_bst": 32, "mv_bpt": 256,
+            "hashtable": 32}.get(structure, 64)
+    be = core.NVMBackend(capacity=NVM_BLADE, device=device)
+    fe = core.FrontEnd(be, _nvm_fe(core, variant, max(4096, int(preload * node * 0.10))))
+    cls = getattr(structures, NVM_CLASSES[structure])
+    keys = random.Random(0).sample(range(preload * 8), preload)
+    if structure in ("stack", "queue"):
+        obj = cls(fe, structure)
+        push = obj.push if structure == "stack" else obj.enqueue
+        for i in range(preload):
+            push(i)
+    elif structure == "hashtable":
+        obj = cls(fe, structure, n_buckets=max(1024, preload // 4))
+        for k in keys:
+            obj.put(k, k)
+    elif structure == "skiplist":
+        obj = cls(fe, structure)
+        for k in sorted(keys):
+            obj.insert(k, k)
+    elif structure in ("bst", "bptree"):
+        obj = cls(fe, structure)
+        for k in keys:
+            obj.insert(k, k)
+    else:
+        obj = cls(fe, structure)
+        obj.build_from_sorted(sorted((k, k) for k in keys))
+    fe.drain(obj.h)
+    rng = random.Random(1)
+    t0 = fe.clock.now
+    if structure in ("stack", "queue"):
+        push = obj.push if structure == "stack" else obj.enqueue
+        for i in range(n_ops):
+            push(i)
+    else:
+        write = obj.insert if hasattr(obj, "insert") else obj.put
+        for _ in range(n_ops):
+            k = rng.randrange(1 << 30)
+            rng.random()  # the write share's draw: every op writes
+            write(k, k)
+    fe.drain(obj.h)
+    return be, fe, obj, fe.clock.now - t0
+
+
+def _nvm_state(be, fe=None) -> dict:
+    """What must agree between the card's run and the CPU's: sha256 of the
+    arena and each mirror's, the clocks and the Stats."""
+    import hashlib
+
+    out = {"digests": [hashlib.sha256(a.cpu().numpy()).hexdigest()
+                       for a in (be.arena, *(m.arena for m in be.mirrors))],
+           "blade_clock": be.clock.now, "blade_stats": dataclasses.asdict(be.stats),
+           "alive": be.alive}
+    if fe is not None:
+        out.update(fe_clock=fe.clock.now, fe_stats=dataclasses.asdict(fe.stats),
+                   cache=[fe.cache.hits, fe.cache.misses])
+    return out
+
+
+def _nvm_pair(torch, scenario):
+    """Runs `scenario(device)` on the card, then on the CPU; each returns
+    ([(step, state)], extra).  Returns (card steps, cpu steps, card extra,
+    card s, cpu s, the first step that differs or None)."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        steps, extra = scenario(dev)
+        torch.cuda.synchronize()
+        runs[dev] = (steps, extra, time.perf_counter() - t0)
+    card, cpu = runs["cuda"], runs["cpu"]
+    differ = next((name for (name, a), (_, b) in zip(card[0], cpu[0]) if a != b), None)
+    if len(card[0]) != len(cpu[0]):
+        differ = "step count"
+    return card[0], cpu[0], card[1], card[2], cpu[2], differ
+
+
+def _nvm_quickstart(dev):
+    """examples/quickstart.py part 1 on a 16 MB blade with one mirror."""
+    from repro_torch.core import FEConfig, FrontEnd, NVMBackend
+    from repro_torch.core.structures import RemoteBPTree
+
+    blade = NVMBackend(capacity=1 << 24, num_mirrors=1, device=dev)
+    fe = FrontEnd(blade, FEConfig.rcb(batch_ops=256))
+    tree = RemoteBPTree(fe, "accounts")
+    for k in range(1000):
+        tree.insert(k, k * k)
+    fe.drain(tree.h)
+    steps = [("inserts", _nvm_state(blade, fe))]
+    blade.crash()
+    blade.reboot()
+    steps.append(("reboot", _nvm_state(blade)))
+    fe2 = FrontEnd(blade, FEConfig.rcb(), fe_id=1)
+    tree2 = RemoteBPTree.recover(fe2, "accounts")
+    found = tree2.find(77)
+    steps.append(("recover", _nvm_state(blade, fe2)))
+    return steps, {"find_77": found, "virtual_ms": fe.clock.now / 1e6}
+
+
+def _nvm_recovery_cases():
+    """{name: scenario(device)}: tears, a long log without the memo, mirror
+    promotion and a lagging mirror (tests/test_torch_nvm_recovery.py's
+    scenarios on 64 MB blades)."""
+    import random
+
+    import torch
+
+    from repro_torch.core import CrashError, FEConfig, FrontEnd, NVMBackend, oplog
+    from repro_torch.core.structures import RemoteBPTree, RemoteHashTable, RemoteQueue, RemoteStack
+
+    def watermark(keep):
+        def run(dev):
+            be = NVMBackend(capacity=NVM_BLADE, device=dev)
+            fe = FrontEnd(be, FEConfig.rc(cache_bytes=4096, oplog_pipeline=1))
+            ht = RemoteHashTable(fe, "h", n_buckets=64)
+            for k in range(10):
+                ht.put(k, k)
+            fe.drain(ht.h)
+            be.schedule_torn_write(keep, at_name="h.seq")
+            try:
+                ht.put(99, 99)
+            except CrashError:
+                pass
+            steps = [("tear", _nvm_state(be, fe))]
+            be.reboot()
+            fe2 = FrontEnd(be, FEConfig.rc(cache_bytes=4096, oplog_pipeline=1))
+            ht2 = RemoteHashTable.recover(fe2, "h")
+            got = [ht2.get(k) for k in (*range(10), 99)]
+            steps.append(("recover", _nvm_state(be, fe2)))
+            return steps, {"ok": got == [*range(10), 99 if keep >= 8 else None]}
+        return run
+
+    def flush_tear(dev):
+        be = NVMBackend(capacity=NVM_BLADE, device=dev)
+        fe = FrontEnd(be, FEConfig.rcb(batch_ops=64, oplog_group=16))
+        s = RemoteStack(fe, "s")
+        for i in range(200):
+            s.push(i)
+        fe.drain(s.h)
+        for i in range(200, 230):
+            s.push(i)
+        be.schedule_torn_write(20)
+        torn = False
+        try:
+            fe.drain(s.h)
+            fe.drain(s.h)
+        except CrashError:
+            torn = True
+        torn = torn and not be.alive  # the tear fired inside the drains
+        steps = [("tear", _nvm_state(be, fe))]
+        be.reboot()
+        fe3 = FrontEnd(be, FEConfig.rcb(batch_ops=64, oplog_group=16), fe_id=2)
+        s3 = RemoteStack.recover(fe3, "s")
+        vals = []
+        while (v := s3.pop()) is not None:
+            vals.append(v)
+        steps.append(("recover", _nvm_state(be, fe3)))
+        return steps, {"ok": torn and len(vals) >= 200 and vals == sorted(vals, reverse=True)}
+
+    def long_log(dev):
+        be = NVMBackend(capacity=NVM_BLADE, num_mirrors=1, device=dev)
+        area = be.create_log_area("x.txlog", 2048)
+        data = be.alloc_blocks(256)
+        rng = random.Random(7)
+        for _ in range(400):
+            entries = [oplog.MemLog(data + 8 * rng.randrange(8000), rng.randbytes(
+                rng.choice([8, 24, 64, 256]))) for _ in range(rng.randrange(1, 9))]
+            be.tx_append(area, oplog.encode_tx(entries))
+        oplog._CSUM_CACHE.clear()  # every body is verified by the blade
+        be.crash()
+        steps = [("appended", _nvm_state(be))]
+        be.reboot()
+        steps.append(("reboot", _nvm_state(be)))
+        return steps, {"ok": be.stats.tx_commits == 400}
+
+    def promotion(dev):
+        be = NVMBackend(capacity=NVM_BLADE, num_mirrors=2, device=dev)
+        fe = FrontEnd(be, FEConfig.rcb(batch_ops=32, oplog_group=8))
+        q = RemoteQueue(fe, "q")
+        for i in range(150):
+            q.enqueue(i)
+        fe.drain(q.h)
+        be.fail_permanently()
+        promoted = be.promote_mirror(1)
+        steps = [("promote", _nvm_state(promoted))]
+        fe2 = FrontEnd(promoted, FEConfig.rcb(), fe_id=3)
+        q2 = RemoteQueue.recover(fe2, "q")
+        got = [q2.dequeue() for _ in range(150)]
+        steps.append(("recover", _nvm_state(promoted, fe2)))
+        return steps, {"ok": got == list(range(150))}
+
+    def lagging(dev):
+        be = NVMBackend(capacity=NVM_BLADE, num_mirrors=1, device=dev)
+        be.mirrors[0].set_lag(4)
+        fe = FrontEnd(be, FEConfig.rcb(batch_ops=32, oplog_group=8))
+        t = RemoteBPTree(fe, "t")
+        for k in random.Random(3).sample(range(10 ** 6), 300):
+            t.insert(k, k)
+        fe.drain(t.h)
+        pending = be.mirrors[0]._n_pending
+        steps = [("lagging", _nvm_state(be, fe))]
+        # a stack pushed and popped empty: the blocks it hands back clear
+        # their bitmap bits while the mirror lags
+        s = RemoteStack(fe, "s")
+        for i in range(600):
+            s.push(i)
+        popped = [s.pop() for _ in range(600)]
+        fe.drain(s.h)
+        released = fe.allocator.release_empty()
+        steps.append(("frees", _nvm_state(be, fe)))
+        be.mirrors[0].sync()
+        steps.append(("synced", _nvm_state(be, fe)))
+        synced = torch.equal(be.mirrors[0].arena, be.arena)
+        return steps, {"ok": pending > 0 and released > 0 and synced
+                       and popped == list(range(599, -1, -1))}
+
+    return {"tear {s}.seq keep 0": watermark(0), "tear {s}.seq keep 8": watermark(8),
+            "tear mid-flush": flush_tear, "400-tx log, memo cleared": long_log,
+            "fail_permanently + promote_mirror": promotion, "lagging mirror (set_lag(4))": lagging}
+
+
+def _nvm_table3_cell(torch, structure, variant, preload, n_ops):
+    """One cell on the card and on the CPU: its line, and whether they agree."""
+    from repro_torch.obs import profile as obs_profile
+
+    line = {"structure": structure, "variant": variant, "preload": preload, "ops": n_ops}
+    states = {}
+    for dev in ("cuda", "cpu"):
+        obs_profile.reset()
+        obs_profile.enable()
+        try:
+            t0 = time.perf_counter()
+            be, fe, obj, ns = _nvm_cell(dev, structure, variant, preload, n_ops)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            obs_profile.disable()
+        states[dev] = _nvm_state(be, fe)
+        copies = (be.d2h + sum(m.d2h for m in be.mirrors), be.h2d + sum(m.h2d for m in be.mirrors))
+        key = "card" if dev == "cuda" else "cpu"
+        line[f"{key}_s"] = wall
+        line[f"{key}_ms_per_op"] = wall * 1e3 / (preload + n_ops)
+        if dev == "cuda":
+            line.update(kops=n_ops / ns * 1e6, d2h=copies[0], h2d=copies[1],
+                        host_s={k: v["seconds"] for k, v in obs_profile.snapshot().items()})
+        del be, fe, obj
+    line["equal"] = states["cuda"] == states["cpu"]
+    emit({"phase": "nvm", "step": "table3", **line})
+    return line
+
+
+def _nvm_kernel_cases(torch):
+    """K1 and K2 on the card against their plain versions, bitwise, and a
+    second run against the first; their times beside their bounds."""
+    from repro_torch.kernels import nvm_log, ref
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    rng = np.random.default_rng(64)
+    lines = {}
+    # K1: a 64 MB span, 1e5 segments of 0-4096 bytes at odd offsets; the
+    # first megabyte all 0xFF, 1000 segments inside it
+    arena = torch.randint(0, 256, (NVM_BLADE,), dtype=torch.uint8, device="cuda", generator=gen)
+    arena[: 1 << 20] = 0xFF
+    n = 100_000
+    lens = rng.integers(0, 4097, n)
+    starts = 2 * rng.integers(0, (NVM_BLADE - 4200) // 2, n) + 1
+    starts[:1000] = 2 * rng.integers(0, ((1 << 20) - 4200) // 2, 1000) + 1
+    run = lambda: nvm_log.fletcher64_segments(arena, starts, lens)  # noqa: E731
+    s_d, l_d = (torch.from_numpy(x).cuda() for x in (starts, lens))
+    plain = lambda: ref.fletcher64_segments_reference(arena, s_d, l_d)  # noqa: E731
+    got, again, want = run(), run(), plain()
+    launch = nvm_log._fletcher64_launcher(arena, starts, lens, torch.empty_like(got))
+    nbytes = int(lens.sum()) + 24 * n  # the bodies, the table in, the sums out
+    bound_ms, bound_by = bound(nbytes, 4.0 * nbytes / 4, "float32")
+    lines["fletcher64_segments"] = {
+        "case": "64 MB span, 1e5 segments of 0-4096 bytes at odd offsets, 1000 all 0xFF",
+        "segments": n, "bytes": int(lens.sum()), "equal_plain": torch.equal(got, want),
+        "bitwise_repeat": torch.equal(got, again), "kernel_ms": timer(run),
+        "launch_ms": timer(launch), "plain_ms": timer(plain, iters=3), "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    del arena, s_d, l_d, got, again, want, launch
+    # K2: a 64 MB arena with one mirror; 1e5 runs into its first 48 MB from a
+    # 16 MB span of its last, a third of them over earlier runs' bytes
+    n = 100_000
+    span = 16 << 20
+    lo = NVM_BLADE - span
+    lens = rng.integers(1, 513, n)
+    addrs = rng.integers(0, lo - 1024, n)
+    third = n // 3
+    pick = rng.integers(0, n - third, third)
+    addrs[n - third:] = addrs[pick] + rng.integers(-64, 65, third).clip(0)  # overlaps
+    offs = rng.integers(0, span - 1024, n)
+    base = torch.randint(0, 256, (NVM_BLADE,), dtype=torch.uint8, device="cuda", generator=gen)
+    dsts = [base.clone(), base.clone()]
+    plain_dsts = [base.clone(), base.clone()]
+    run = lambda: nvm_log.apply_runs(dsts, dsts[0][lo:], addrs, offs, lens)  # noqa: E731
+    a_d, o_d, n_d = (torch.from_numpy(x).cuda() for x in (addrs, offs, lens))
+    plain = lambda: ref.apply_runs_reference(plain_dsts, plain_dsts[0][lo:], a_d, o_d, n_d)  # noqa: E731
+    run()
+    launch = nvm_log._apply_launcher(dsts, dsts[0][lo:], addrs, offs, lens)
+    first = [d.clone() for d in dsts]
+    run()
+    plain()
+    equal = all(torch.equal(d, p) for d, p in zip(dsts, plain_dsts))
+    repeat = all(torch.equal(d, f) for d, f in zip(dsts, first))
+    order = np.argsort(addrs, kind="stable")
+    a, e = addrs[order], addrs[order] + lens[order]
+    reach = np.maximum.accumulate(e)
+    heads = np.flatnonzero(np.r_[True, a[1:] >= reach[:-1]])
+    written = int((np.maximum.reduceat(e, heads) - a[heads]).sum())  # distinct bytes
+    nbytes = written * (1 + len(dsts)) + 32 * n  # read once, written to arena and mirror
+    bound_ms, bound_by = bound(nbytes, 0.0, "float32")
+    lines["apply_runs"] = {
+        "case": "64 MB arena and one mirror, 1e5 runs of 1-512 bytes, a third over earlier "
+                "runs", "runs": n, "distinct_bytes": written, "equal_plain": equal,
+        "bitwise_repeat": repeat, "kernel_ms": timer(run), "launch_ms": timer(launch),
+        "plain_ms": timer(plain, iters=3), "library_ms": None, "bound_ms": bound_ms,
+        "bound_by": bound_by}
+    del dsts, plain_dsts, first, base, timer, launch
+    torch.cuda.empty_cache()
+    return lines
+
+
+def phase_nvm(torch):
+    """The single-blade AsymNVM machine on the card, each step against the
+    same step on a CPU blade: the quickstart, Table 3's 44 cells (cut) and
+    two at full size, recovery; then K1 and K2 against their plain versions.
+    Returns each kernel's line with its launches over the main path."""
+    from repro_torch.kernels import nvm_log
+
+    t0 = time.perf_counter()
+    nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
+    failed = []
+    steps, cpu_steps, extra, card_s, cpu_s, differ = _nvm_pair(torch, _nvm_quickstart)
+    emit({"phase": "nvm", "step": "quickstart", "blade_mb": 16, "find_77": extra["find_77"],
+          "virtual_ms": extra["virtual_ms"], "card_s": card_s, "cpu_s": cpu_s,
+          "equal": differ is None, "steps": [s for s, _ in steps]})
+    if differ is not None or extra["find_77"] != 77 * 77:
+        failed.append(f"quickstart: {differ} find(77) {extra['find_77']}")
+    cells = []
+    for structure in NVM_STRUCTURES:
+        for variant in NVM_VARIANTS:
+            if (structure, variant) not in NVM_SKIP:
+                cells.append(_nvm_table3_cell(torch, structure, variant, *NVM_CUT))
+    for structure, variant in NVM_FULL:
+        cells.append(_nvm_table3_cell(torch, structure, variant, *NVM_TABLE3))
+    failed += [f"table3 {c['structure']} x {c['variant']} ({c['preload']})" for c in cells
+               if not c["equal"]]
+    for name, scenario in _nvm_recovery_cases().items():
+        steps, _, extra, card_s, cpu_s, differ = _nvm_pair(torch, scenario)
+        emit({"phase": "nvm", "step": "recovery", "case": name, "card_s": card_s,
+              "cpu_s": cpu_s, "equal": differ is None, "ok": extra["ok"],
+              "steps": [s for s, _ in steps]})
+        if differ is not None or not extra["ok"]:
+            failed.append(f"recovery {name}: {differ} ok {extra['ok']}")
+    launches = {"fletcher64_segments": nvm_log.fletcher64_launches,
+                "apply_runs": nvm_log.apply_launches}
+    main_s = time.perf_counter() - t0
+    by_variant = {}
+    for v in NVM_VARIANTS:
+        cut = [c for c in cells if c["variant"] == v and c["preload"] == NVM_CUT[0]]
+        ops = sum(c["preload"] + c["ops"] for c in cut)
+        by_variant[v] = {"cells": len(cut), "card_ms_per_op": sum(c["card_s"] for c in cut)
+                         * 1e3 / ops, "cpu_ms_per_op": sum(c["cpu_s"] for c in cut) * 1e3 / ops}
+    trace = _nvm_trace(torch)
+    emit({"phase": "nvm", "step": "trace", **trace})
+    for variant in NVM_VARIANTS:  # every variant runs on the B+Tree
+        emit({"phase": "nvm", "step": "verbs", "structure": "bptree", "variant": variant,
+              "preload": NVM_CUT[0], "ops": NVM_CUT[1], "verbs": _nvm_verbs(torch, "bptree",
+                                                                            variant)})
+    kernels = _nvm_kernel_cases(torch)
+    for name, k in kernels.items():
+        k["launches"] = launches[name]
+        if not (k["equal_plain"] and k["bitwise_repeat"]):
+            failed.append(f"kernel {name}: plain {k['equal_plain']} "
+                          f"repeat {k['bitwise_repeat']}")
+    emit({"phase": "nvm", "main_path_s": main_s, "seconds": time.perf_counter() - t0,
+          "cut": {"preload": [NVM_TABLE3[0], NVM_CUT[0]], "ops": [NVM_TABLE3[1], NVM_CUT[1]]},
+          "launches": launches, "ms_per_op_by_variant": by_variant, "kernels": kernels,
+          "ok": not failed, "failed": failed})
+    if failed:
+        raise AssertionError(f"nvm: {failed}")
+    return kernels
+
+
+NVM_VERBS = ("read", "write", "atomic_read", "atomic_add", "atomic_cas", "get_name",
+             "set_name", "name_slot_addr", "has_name", "alloc_blocks", "free_blocks",
+             "tx_append", "tx_apply", "gather", "reboot")
+
+
+def _nvm_verbs(torch, structure, variant):
+    """One cut cell on the card with the blade's verbs counted: for each verb
+    its calls an op, the copies to and from the host a call (its mirrors'
+    included; a verb's nested verbs count in it) and its host ms a call."""
+    from repro_torch.core import backend
+
+    cls = backend.NVMBackend
+    own = {v: v in cls.__dict__ for v in NVM_VERBS}
+    saved = {v: getattr(cls, v) for v in NVM_VERBS}
+    acc, depth = {}, [0]
+
+    def copies(be):
+        return (be.d2h + sum(m.d2h for m in be.mirrors),
+                be.h2d + sum(m.h2d for m in be.mirrors))
+
+    def wrap(name, fn):
+        def counted(self, *args, **kwargs):
+            if depth[0]:
+                return fn(self, *args, **kwargs)
+            depth[0] += 1
+            (d0, h0), t0 = copies(self), time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                depth[0] -= 1
+                d1, h1 = copies(self)
+                a = acc.setdefault(name, [0, 0, 0, 0.0])
+                a[0] += 1
+                a[1] += d1 - d0
+                a[2] += h1 - h0
+                a[3] += time.perf_counter() - t0
+        return counted
+
+    for v, fn in saved.items():
+        setattr(cls, v, wrap(v, fn))
+    try:
+        _nvm_cell("cuda", structure, variant, *NVM_CUT)
+    finally:
+        for v, fn in saved.items():
+            if own[v]:
+                setattr(cls, v, fn)
+            else:
+                delattr(cls, v)
+    ops = sum(NVM_CUT)
+    return {v: {"per_op": n / ops, "d2h_per_call": d / n, "h2d_per_call": h / n,
+                "host_ms_per_call": t * 1e3 / n} for v, (n, d, h, t) in sorted(acc.items())}
+
+
+def _nvm_trace(torch):
+    """torch.profiler over one cut hashtable x r cell on the card (every op
+    flushes, so every op replays its log on the blade): device ms by
+    kernel and copy, wall, and the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        be, fe, obj, ns = _nvm_cell("cuda", "hashtable", "r", *NVM_CUT)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name = {e.key: [e.self_device_time_total / 1e3, e.count] for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0.0) > 0}
+    device = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"cell": "hashtable x r", "preload": NVM_CUT[0], "ops": NVM_CUT[1],
+            "wall_ms": wall * 1e3, "device_ms": device,
+            "idle_share": 1.0 - device / (wall * 1e3) if wall > 0 else None,
+            "tx_applies": be.stats.tx_commits,
+            "top": [[k, t, c] for k, (t, c) in top]}
+
+
 def _fail(reason: str) -> int:
     """An early exit: its reason on stderr and as one line on stdout, no result."""
     print(f"chip_smoke: {reason}", file=sys.stderr, flush=True)
@@ -2423,8 +2951,9 @@ def main(argv=None) -> int:
     parity = phase_train_parity(torch) if "train_parity" in only else None
     lifecycle = phase_lifecycle(torch) if "lifecycle" in only else None
     mesh = phase_mesh(torch) if "mesh" in only else None
+    nvm = phase_nvm(torch) if "nvm" in only else None
     emit({"phase": "time", "seconds": time.perf_counter() - t_start})
-    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle, mesh):
+    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle, mesh, nvm):
         return 0  # a partial run checks what it ran and claims nothing more
 
     # each kernel's launches over the phase of the main path that runs it:
@@ -2563,6 +3092,23 @@ def main(argv=None) -> int:
                                   "max_abs_err": one["max_err"], "ms": one["kernel_ms"],
                                   "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
                                   "bound_by": one["bound_by"], "library_ms": one["library_ms"]}
+    for name, replaces in (
+            ("fletcher64_segments", "none: no TPU kernel; the blade's arena is on the card, so "
+             "its checksum verify runs there (the host's is src/repro/core/oplog.py:83, "
+             "fletcher64_segments)"),
+            ("apply_runs", "none: no TPU kernel; the blade's arena is on the card, so its log "
+             "replay runs there (the host's is src/repro/core/backend.py:613, tx_apply)")):
+        c = nvm[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/nvm_log.cu",
+                        "replaces": replaces, "launches": c["launches"],
+                        "launches_from": "nvm", "launches_by_phase": {"nvm": c["launches"]},
+                        "case": c["case"],
+                        "max_abs_err": 0.0 if c["equal_plain"] else None, "ms": c["kernel_ms"],
+                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                        "checked": True, "design": NVM_DESIGN[name],
+                        "bitwise_repeat": c["bitwise_repeat"], "launch_ms": c["launch_ms"]})
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the main path never launched: {kernels}")
     emit({"kernels": kernels})

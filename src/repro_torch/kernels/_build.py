@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("flash_attention", "flash_attention_sm90", "flash_attention_bwd",
            "flash_attention_bwd_sm90", "decode_attention", "decode_attention_sm90",
-           "rglru_scan", "mamba_scan", "topk_compress", "log_checksum")
+           "rglru_scan", "mamba_scan", "topk_compress", "log_checksum", "nvm_log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

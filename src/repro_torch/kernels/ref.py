@@ -1,8 +1,8 @@
 """Plain PyTorch versions of every kernel of the port.
 
 The torch twins of ``repro.kernels.ref``'s attention, scan, top-k and
-checksum oracles, and the attention backward the JAX package leaves to
-autodiff.  They are the CPU path of the port, the oracle its CUDA kernels
+checksum oracles, the attention backward the JAX package leaves to
+autodiff, and the NVM blade's log checksum and replay (``nvm_log``).  They are the CPU path of the port, the oracle its CUDA kernels
 are held against on the card, and the path ``impl="torch"`` takes on any
 device.
 """
@@ -476,3 +476,71 @@ def fletcher32_wave_reference(chunks) -> torch.Tensor:
     if not chunks:
         return torch.empty(0, dtype=torch.int64)
     return torch.stack([fletcher32_reference(c) for c in chunks])
+
+
+# ============================================================ the NVM blade's logs
+FLETCHER64_MOD = 0xFFFFFFFF
+
+
+def _segment_positions(lens: torch.Tensor):
+    """(segment of each element, its offset in the segment) for segments of
+    `lens` elements laid end to end."""
+    n = lens.numel()
+    seg = torch.repeat_interleave(torch.arange(n, device=lens.device), lens)
+    first = torch.cumsum(lens, 0) - lens
+    within = torch.arange(seg.numel(), device=lens.device) - first[seg]
+    return seg, within
+
+
+def fletcher64_segments_reference(arena: torch.Tensor, starts: torch.Tensor,
+                                  lens: torch.Tensor) -> torch.Tensor:
+    """[n] uint64: the Fletcher-64 of each segment ``arena[starts[i] :
+    starts[i] + lens[i]]`` (int64 byte offsets on the arena's device),
+    read as little-endian 32-bit words, zero-padded to whole words from its
+    own start: ``(s2 << 32) | s1`` with ``s1 = sum w_j`` and ``s2 = sum
+    (L - j) w_j`` mod ``2^32 - 1``, L the segment's words.  The value of
+    ``repro_torch.core.oplog.fletcher64`` of each segment's bytes.
+
+    Summed in int64: a word is below 2^32 and ``L - j`` below 2^31, so each
+    weighted term fits before it is reduced, and each sum of reduced terms
+    fits while a call holds fewer than 2^31 words."""
+    words = (lens + 3) // 4
+    seg, j = _segment_positions(words)
+    first = starts[seg] + 4 * j
+    rem = lens[seg] - 4 * j
+    last = arena.numel() - 1
+    w = torch.zeros_like(first)
+    for k in range(4):
+        b = arena[(first + k).clamp(max=last)].to(torch.int64)
+        w |= torch.where(rem > k, b, 0) << (8 * k)
+    n = lens.numel()
+    s1 = torch.zeros(n, dtype=torch.int64, device=arena.device).index_add_(0, seg, w)
+    s1 %= FLETCHER64_MOD
+    t = ((words[seg] - j) * w) % FLETCHER64_MOD
+    s2 = torch.zeros(n, dtype=torch.int64, device=arena.device).index_add_(0, seg, t)
+    s2 %= FLETCHER64_MOD
+    # s2 * 2^32 + s1 in two's complement: the uint64 bits in an int64
+    hi = torch.where(s2 >= 1 << 31, s2 - (1 << 32), s2)
+    return (hi * (1 << 32) + s1).view(torch.uint64)
+
+
+def apply_runs_reference(dsts, src: torch.Tensor, addrs: torch.Tensor, offs: torch.Tensor,
+                         lens: torch.Tensor) -> None:
+    """For each run i in order, ``dst[addrs[i] : addrs[i] + lens[i]] =
+    src[offs[i] : offs[i] + lens[i]]`` for every ``dst`` of `dsts` (uint8
+    tensors; the run table int64 on their device).  Where runs overlap the
+    last one wins, as in the serial loop: every destination byte is written
+    once, from the highest-numbered run that covers it (a stable sort of the
+    runs' bytes by destination keeps run order within a byte)."""
+    if lens.numel() == 0 or int(lens.sum()) == 0:
+        return
+    run, within = _segment_positions(lens)
+    pos = addrs[run] + within
+    order = torch.argsort(pos, stable=True)
+    sorted_pos = pos[order]
+    last = torch.ones_like(sorted_pos, dtype=torch.bool)
+    last[:-1] = sorted_pos[1:] != sorted_pos[:-1]
+    pick = order[last]
+    vals = src[offs[run[pick]] + within[pick]]
+    for d in dsts:
+        d[pos[pick]] = vals

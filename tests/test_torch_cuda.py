@@ -915,3 +915,102 @@ def test_trainer_runs_deterministic_steps_and_gives_the_mode_back(cuda):
     tr.init()
     out = tr.run(TrainerConfig(total_steps=2))
     assert out["final_step"] == 2 and torch.are_deterministic_algorithms_enabled() == before
+
+
+# ------------------------------------------------ the NVM blade's kernels
+def _fletcher64_host(data: bytes) -> int:
+    """Fletcher-64 over little-endian 32-bit words, zero-padded: the
+    definition, in Python integers."""
+    data = data + b"\x00" * (-len(data) % 4)
+    words = np.frombuffer(data, dtype="<u4").tolist()
+    n = len(words)
+    s1 = sum(words) % 0xFFFFFFFF
+    s2 = sum((n - j) * w for j, w in enumerate(words)) % 0xFFFFFFFF
+    return (s2 << 32) | s1
+
+
+def test_fletcher64_segments_kernel_matches_plain(cuda):
+    """K1 at unaligned starts, empty and short segments, long ones (a block
+    each), all-0xFF bodies and a segment ending at the arena's last byte."""
+    from repro_torch.kernels import nvm_log
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    arena = torch.randint(0, 256, (1 << 20,), dtype=torch.uint8, device=cuda, generator=gen)
+    arena[4096:4096 + 70001] = 0xFF
+    rng = np.random.default_rng(5)
+    starts = [0, 1, 2, 3, 5, 4096, 4097, 100003, (1 << 20) - 7, (1 << 20) - 1, 7, 999]
+    lens = [0, 1, 2, 3, 7, 70001, 70000, 40000, 7, 1, 0, 4]
+    starts += rng.integers(0, (1 << 20) - 5000, 500).tolist()
+    lens += rng.integers(0, 4097, 500).tolist()
+    c = nvm_log.fletcher64_launches
+    got = nvm_log.fletcher64_segments(arena, starts, lens)
+    assert nvm_log.fletcher64_launches == c + 1
+    want = ref.fletcher64_segments_reference(arena, torch.tensor(starts, device=cuda),
+                                             torch.tensor(lens, device=cuda))
+    host = arena.cpu().numpy().tobytes()
+    assert got.tolist() == want.tolist()
+    assert got.tolist()[:12] == [_fletcher64_host(host[s:s + n])
+                                 for s, n in zip(starts[:12], lens[:12])]
+    assert nvm_log.fletcher64_segments(arena, starts, lens).tolist() == got.tolist()
+
+
+@pytest.mark.parametrize("mirrors", [0, 2])
+def test_apply_runs_kernel_matches_serial_loop(cuda, mirrors):
+    """K2 on overlapping runs (duplicates, partial overlaps, empty runs),
+    from a source span inside the arena, to the arena and its mirrors."""
+    from repro_torch.kernels import nvm_log
+
+    rng = np.random.default_rng(mirrors)
+    size = 1 << 20
+    base = rng.integers(0, 256, size, dtype=np.uint8)
+    n = 3000
+    addrs = rng.integers(0, size // 2, n)
+    addrs[n // 3: n // 2] = addrs[: n // 2 - n // 3]
+    addrs[n // 2: 2 * n // 3] = addrs[: 2 * n // 3 - n // 2] + 5
+    lens = rng.integers(0, 600, n)
+    lens[::11] = 0
+    lo = size // 2 + 1000
+    offs = rng.integers(0, 100000, n)
+    dsts = [torch.from_numpy(base.copy()).to(cuda) for _ in range(1 + mirrors)]
+    want = bytearray(base.tobytes())
+    src = bytes(want[lo:lo + 101000])
+    for a, o, ln in zip(addrs.tolist(), offs.tolist(), lens.tolist()):
+        want[a:a + ln] = src[o:o + ln]
+    plain = [d.clone() for d in dsts]
+    c = nvm_log.apply_launches
+    nvm_log.apply_runs(dsts, dsts[0][lo:lo + 101000], addrs, offs, lens)
+    assert nvm_log.apply_launches == c + 1
+    ref.apply_runs_reference(plain, plain[0][lo:lo + 101000].clone(),
+                             *(torch.from_numpy(x).to(cuda) for x in (addrs, offs, lens)))
+    for d, p in zip(dsts, plain):
+        assert d.cpu().numpy().tobytes() == bytes(want)
+        assert torch.equal(d, p)
+
+
+def test_hashtable_on_a_card_blade_equals_the_cpu_blade(cuda):
+    """The same RemoteHashTable run on a blade on the card and on the CPU:
+    the same arena and mirror digests, clocks and Stats, and the card's
+    blade replayed its logs with K2."""
+    import dataclasses as dc
+
+    from repro_torch.core import FEConfig, FrontEnd, NVMBackend
+    from repro_torch.core.structures import RemoteHashTable
+    from repro_torch.kernels import nvm_log
+
+    def run(device):
+        be = NVMBackend(capacity=1 << 23, num_mirrors=1, device=device)
+        fe = FrontEnd(be, FEConfig.r())
+        ht = RemoteHashTable(fe, "h", n_buckets=256)
+        for k in range(300):
+            ht.put(k * 7919 % 100003, k)
+        ht.put_many([(k, -k) for k in range(50)])
+        fe.drain(ht.h)
+        got = [ht.get(k) for k in range(60)]
+        digest = [hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()
+                  for a in (be.arena, *(m.arena for m in be.mirrors))]
+        return digest, fe.clock.now, be.clock.now, dc.asdict(fe.stats), dc.asdict(be.stats), got
+
+    c = nvm_log.apply_launches
+    on_card = run(cuda)
+    assert nvm_log.apply_launches > c
+    assert on_card == run("cpu")
