@@ -11,6 +11,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --only kernel,train_stablelm,train_parity
     python3 chip_smoke.py --only mesh
     python3 chip_smoke.py --only build,nvm
+    python3 chip_smoke.py --only build,cluster
 
 It prints one JSON object per line, one line per phase:
 
@@ -164,6 +165,27 @@ It prints one JSON object per line, one line per phase:
            runs, a third overlapping: kernel_ms the whole call (its host
            planning included), launch_ms the launch alone on a table
            planned before (both CUDA events after the L2 flush)
+  cluster  the cluster (src/repro_torch/cluster, faults, core/apps,
+           obs/report.py): each step on a cluster on the card and on one on
+           the CPU, in one process, every blade's arena and mirror digests,
+           the directory's and the lease table's bytes, every front end's
+           clock, Stats, aggregate_stats() and telemetry held equal:
+           README's quick start; fig_cluster_scaling's run_scaling at 8
+           blades of 64 MB with a mirror each (16 front ends, 400 + 600 puts
+           each) and at 1, 2 and 4 blades (60 + 100); its replica reads at
+           2 blades (32 front ends, 100 + 192 ops); a migration with writes
+           in its copy window, a power loss mid-replay (the reboot's verify
+           on the blade, K1), a permanent failure and a dead NIC promoted
+           from the data path, a cold bootstrap of the directory;
+           fig_availability's chaos sweep (40 schedules of 80 ops, every
+           fault kind) and 8 steal schedules, ChaosResults equal and no
+           violation; SmallBank and TATP under sym, naive, r and rc;
+           the failure story again under a tracer, its report
+           (obs.report.validate empty, fault_summary equal to the
+           injector's counts; summarize printed on a line of its own).
+           Each step's card and CPU seconds (ms an op where it has ops);
+           the phase's line: K1's and K2's launches, max_memory_allocated,
+           reduced (the op counts cut, if any)
   time     the seconds of the whole run, the kernels' build included
   kernels  every kernel of the path: its launches over the phase that runs
            it (serve, train, train_recurrent, train_stablelm or lifecycle,
@@ -176,10 +198,11 @@ It prints one JSON object per line, one line per phase:
            topk_compress its design, fallback share and other inputs, the
            flash backward at head_dim 256 and the two reverse scans their
            designs and per-launch times; the blade's two kernels, with the
-           nvm phase's launches (they replace no TPU kernel)
+           nvm and cluster phases' launches (they replace no TPU kernel)
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
-script exits non-zero without it.  It also exits non-zero, with no result,
+script exits non-zero without it.  A phase that runs past PHASE_STALL_S
+prints every thread's Python stack to stderr (faulthandler) and goes on.  It also exits non-zero, with no result,
 when no CUDA device is available or src/repro_torch is not beside it: its
 reason goes to stderr and, as {"phase": "exit", "ok": false, ...}, to stdout.
 """
@@ -188,6 +211,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import json
 import os
 import subprocess
@@ -199,8 +223,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# a phase still running after this many seconds prints every thread's stack
+# to stderr (faulthandler), and again every as many seconds; the run goes on
+PHASE_STALL_S = 300
 PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_recurrent",
-          "train_stablelm", "train_parity", "lifecycle", "mesh", "nvm")
+          "train_stablelm", "train_parity", "lifecycle", "mesh", "nvm", "cluster")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
 SFU_EXP_PER_S = 132 * 16 * 1.98e9   # exponentials: 16 an SM a clock, 132 SMs, 1.98 GHz boost
@@ -2886,6 +2913,424 @@ def _nvm_trace(torch):
             "top": [[k, t, c] for k, (t, c) in top]}
 
 
+# ------------------------------------------------------------------ cluster
+# benchmarks/fig_cluster_scaling.py's run_scaling, (blades, front ends,
+# preload, ops a front end): the figure's settings at 8 blades, its --smoke
+# sizes at 1, 2 and 4
+CLUSTER_SCALING = ((8, 16, 400, 600), (1, 16, 60, 100), (2, 16, 60, 100), (4, 16, 60, 100))
+CLUSTER_BLADE = 1 << 26            # NVMCluster's default: 64 MB a blade, and one mirror
+CLUSTER_SHARDS = 16                # fig_cluster_scaling.N_SHARDS
+CLUSTER_KEYSPACE = 1 << 22         # fig_cluster_scaling.KEYSPACE
+# run_replica_reads (blades, front ends, preload, ops), one mirror a blade
+CLUSTER_READS = (2, 32, 100, 192)
+# fig_availability.run_sweep (schedules, ops, blades, faults) at
+# BENCH_availability.json's recorded sizes; then tests/test_chaos.py's 8 steal seeds
+CLUSTER_CHAOS = (40, 80, 3, 6)
+CLUSTER_STEAL_SEEDS = 8
+CLUSTER_APPS = (50000, 5000, 1000)  # benchmarks/run.py: accounts, subscribers, ops
+# the op counts cut to keep the phase near 150 s on the card and the CPU
+# together (blade counts, blade sizes and widths are the sources')
+CLUSTER_REDUCED = {
+    "scaling 1, 2, 4 blades": "preload 150 -> 60, ops 250 -> 100 a front end "
+                              "(fig_cluster_scaling --smoke)",
+    "replica reads": "preload 250 -> 100, ops 400 -> 192 a front end "
+                     "(BENCH_cluster_reads.json's meta sizes)",
+    "apps": "run_mix 2500 -> 1000 transactions (benchmarks/run.py); TATP still "
+            "populates all 5000 subscribers"}
+
+
+def _cluster_state(cluster, cfes=()) -> dict:
+    """What must agree between a cluster on the card and one on the CPU:
+    each blade's arena and mirror digests, clock and Stats; the directory's
+    and the lease table's bytes and epochs; each front end's clock, Stats,
+    aggregate_stats() and telemetry (its latency histograms included)."""
+    return {"blades": {str(b): _nvm_state(be) for b, be in sorted(cluster.blades.items())},
+            "directory": cluster.directory.encode().hex(), "epoch": cluster.directory.epoch,
+            "leases": cluster.leases.encode().hex(), "write_epoch": cluster.leases.write_epoch,
+            "failovers": cluster.failovers, "migrations": cluster.migrations,
+            "frontends": [{"clock": c.clock.now, "stats": c.stats(),
+                           "aggregate": c.aggregate_stats(), "telemetry": c.telemetry(),
+                           "fes": {str(b): fe.clock.now for b, fe in sorted(c.fes.items())}}
+                          for c in cfes]}
+
+
+def _cluster_durable():
+    """The scaling figure's and the chaos harness's front end: a sync op-log
+    round an op and a 4 KB cache."""
+    from repro_torch.core import FEConfig
+
+    return FEConfig.rc(cache_bytes=4096, oplog_pipeline=1)
+
+
+def _cluster_reset_clocks(cluster, cfes):
+    """fig_cluster_scaling._reset_clocks: the preload / measurement barrier."""
+    for be in cluster.blades.values():
+        be.link.reset()
+        for m in be.mirrors:
+            m.link.reset()
+    for cfe in cfes:
+        cfe.clock.now = 0.0
+        cfe.op_hist.clear()
+        cfe._retired_op_hists.clear()
+        for fe in cfe.fes.values():
+            fe.clock.now = 0.0
+            fe.op_hist.clear()
+
+
+def _cluster_interleave(cfes, ops, run_one):
+    """`ops` a front end in virtual-time order (the smallest clock goes
+    next); run_one(i, done) runs front end i's next batch, returns its size."""
+    done = [0] * len(cfes)
+    while any(d < ops for d in done):
+        i = min((cfes[i].clock.now, i) for i in range(len(cfes)) if done[i] < ops)[1]
+        done[i] += run_one(i, done[i])
+
+
+def _cluster_quickstart(dev):
+    """README's cluster quick start: 4 mirrored 64 MB blades, 16 shards."""
+    from repro_torch.cluster import ClusterFrontEnd, NVMCluster, ShardedHashTable, rebalance
+    from repro_torch.core import FEConfig
+
+    cluster = NVMCluster(n_blades=4, n_shards=16, device=dev)
+    cfe = ClusterFrontEnd(cluster, FEConfig.rc(), fe_id=0)
+    ht = ShardedHashTable(cfe, "users")
+    ht.put(42, 1)
+    ht.drain()
+    steps = [("put", _cluster_state(cluster, [cfe]))]
+    cluster.blades[2].fail_permanently()
+    got = ht.get(42)
+    steps.append(("fail_permanently", _cluster_state(cluster, [cfe])))
+    new = cluster.add_blade()
+    moves = rebalance(ht)
+    after = ht.get(42)
+    steps.append(("add_blade + rebalance", _cluster_state(cluster, [cfe])))
+    return steps, {"get_42": [got, after], "new_blade": new, "moves": len(moves),
+                   "failovers": cluster.failovers, "ok": got == after == 1}
+
+
+def _cluster_scaling(n_blades, n_frontends, preload, ops):
+    """fig_cluster_scaling.run_scaling: a sharded table a front end,
+    preloaded, then `ops` puts each, interleaved in virtual-time order."""
+    def run(dev):
+        import random
+
+        from repro_torch.cluster import ClusterFrontEnd, NVMCluster, ShardedHashTable
+        from repro_torch.obs.hist import LatencyHistogram
+
+        cluster = NVMCluster(n_blades=n_blades, capacity_per_blade=CLUSTER_BLADE,
+                             n_shards=CLUSTER_SHARDS, device=dev)
+        cfes = [ClusterFrontEnd(cluster, _cluster_durable(), fe_id=i) for i in range(n_frontends)]
+        tables = [ShardedHashTable(c, f"t{i}", n_buckets=max(256, preload // 2))
+                  for i, c in enumerate(cfes)]
+        rngs = [random.Random(1000 + i) for i in range(n_frontends)]
+        for t, rng in zip(tables, rngs):
+            for k in rng.sample(range(CLUSTER_KEYSPACE), preload):
+                t.put(k, k)
+            t.drain()
+        _cluster_reset_clocks(cluster, cfes)
+
+        def put(i, _):
+            k = rngs[i].randrange(CLUSTER_KEYSPACE)
+            tables[i].put(k, k)
+            return 1
+        _cluster_interleave(cfes, ops, put)
+        for t in tables:
+            t.drain()
+        per_client = [ops / c.clock.now * 1e6 for c in cfes]
+        h = LatencyHistogram.merged(c.op_hist["put"] for c in cfes)
+        p50, p99, p999 = h.percentiles((50, 99, 99.9))
+        return [("scaling", _cluster_state(cluster, cfes))], {
+            "aggregate_kops": sum(per_client), "per_client_kops": sum(per_client) / n_frontends,
+            "put_service_p50_us": p50 / 1e3, "put_service_p99_us": p99 / 1e3,
+            "put_service_p999_us": p999 / 1e3, "ok": True}
+    return run
+
+
+def _cluster_replica_reads(dev):
+    """fig_cluster_scaling.run_replica_reads: primary-only against
+    replica-routed get_many (ReadPolicy auto, staleness bound 256), 90%
+    reads in batches of 64, the page cache off."""
+    import random
+
+    from repro_torch.cluster import ClusterFrontEnd, NVMCluster, ReadPolicy, ShardedHashTable
+    from repro_torch.core import FEConfig
+
+    n_blades, n_frontends, preload, ops = CLUSTER_READS
+    steps, out = [], {}
+    for mode in ("primary", "replica"):
+        policy = ReadPolicy(mode="auto", max_staleness_ops=256) if mode == "replica" else None
+        cluster = NVMCluster(n_blades=n_blades, capacity_per_blade=CLUSTER_BLADE,
+                             n_shards=CLUSTER_SHARDS, num_mirrors=1, device=dev)
+        cfg = FEConfig(use_oplog=True, use_cache=False, use_batch=True)
+        cfes, tables, rngs, pools = [], [], [], []
+        for i in range(n_frontends):
+            cfe = ClusterFrontEnd(cluster, cfg, fe_id=i)
+            t = ShardedHashTable(cfe, f"t{i}", n_buckets=max(256, preload // 2),
+                                 read_policy=policy)
+            rng = random.Random(2000 + i)
+            pool = rng.sample(range(CLUSTER_KEYSPACE), preload)
+            t.put_many([(k, k) for k in pool])
+            t.drain()
+            cfes.append(cfe)
+            tables.append(t)
+            rngs.append(rng)
+            pools.append(pool)
+        _cluster_reset_clocks(cluster, cfes)
+
+        def batch(i, done):
+            n = min(64, ops - done)
+            rng, pool = rngs[i], pools[i]
+            if rng.random() < 0.9:
+                tables[i].get_many([rng.choice(pool) for _ in range(n)])
+            else:
+                tables[i].put_many([(rng.choice(pool), done + j) for j in range(n)])
+            return n
+        _cluster_interleave(cfes, ops, batch)
+        for t in tables:
+            t.drain()
+        out[f"{mode}_kops"] = sum(ops / c.clock.now * 1e6 for c in cfes)
+        out[f"{mode}_replica_reads"] = sum(c.aggregate_stats()["replica_reads"] for c in cfes)
+        steps.append((mode, _cluster_state(cluster, cfes)))
+    out["speedup"] = out["replica_kops"] / out["primary_kops"]
+    out["ok"] = out["replica_replica_reads"] > 0
+    return steps, out
+
+
+def _cluster_failure_story(dev, traced=False):
+    """A shard migration with writes in its copy window; a power loss in the
+    middle of a replay and the reboot the data path makes (its verify on the
+    blade, K1); a permanent failure and the promotion; a NIC
+    that dies under a FaultInjector (probed, fenced and promoted from the
+    data path, with dropped completions, a lease expiry and a lag spike
+    around it); a cold bootstrap of the directory from the blades' bytes.
+    `traced`: under an obs session with a tracer, and the port's report of
+    its trace."""
+    from repro_torch import obs
+    from repro_torch.cluster import ClusterFrontEnd, NVMCluster, ShardedHashTable, migrate_shard
+    from repro_torch.core import CrashError, FEConfig, oplog
+    from repro_torch.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.obs import report
+
+    sess = obs.start(trace=True, metrics=True) if traced else None
+    try:
+        cluster = NVMCluster(n_blades=3, capacity_per_blade=CLUSTER_BLADE, n_shards=8,
+                             device=dev)
+        cfe = ClusterFrontEnd(cluster, _cluster_durable(), fe_id=0)
+        cfe2 = ClusterFrontEnd(cluster, FEConfig.rcb(cache_bytes=4096), fe_id=1)
+        t = ShardedHashTable(cfe, "t", n_buckets=256)
+        t2 = ShardedHashTable(cfe2, "t", n_buckets=256)
+        model = {}
+
+        def puts(keys, value=lambda k: k):
+            for k in keys:
+                t.put(k, value(k))
+                model[k] = value(k)
+        puts(range(400))
+        t.drain()
+        steps = [("preload", _cluster_state(cluster, [cfe, cfe2]))]
+
+        def during_copy():
+            for k in range(5000, 5080):
+                t2.put(k, k + 1)
+                model[k] = k + 1
+            t2.drain()
+        mig = migrate_shard(t, 3, cluster.add_blade(), during_copy=during_copy)
+        steps.append(("migrate_shard", _cluster_state(cluster, [cfe, cfe2])))
+        # a power loss in the middle of a replay: blade 0 dies inside the
+        # apply of a committed flush of the second front end's staged puts,
+        # and the front ends come back without their checksum memo, so the
+        # reboot the data path makes verifies the committed bodies (K1)
+        for k in range(20000, 20060):
+            t2.put(k, k)
+        cluster.blades[0].schedule_torn_write(0, after_writes=4)
+        try:
+            cfe2.drain_all()
+        except CrashError:
+            pass
+        oplog._CSUM_CACHE.clear()
+        puts(range(400, 480))
+        steps.append(("power loss mid-replay, reboot", _cluster_state(cluster, [cfe, cfe2])))
+        cluster.blades[1].fail_permanently()
+        puts(range(480, 560))
+        steps.append(("fail_permanently, promotion", _cluster_state(cluster, [cfe, cfe2])))
+        plan = FaultPlan(seed=0, specs=[
+            FaultSpec("wqe_drop", 2, 0, a=2), FaultSpec("lease_expiry", 5, 0),
+            FaultSpec("lag_spike", 8, 3, a=16, b=0), FaultSpec("nic_dead", 12, 2)])
+        inj = FaultInjector(plan, cluster, cfe.clock, table="t", n_shards=8)
+        for i in range(120):
+            inj.step(i)
+            puts([10000 + i], lambda k: k - 10000)
+        inj.finish()
+        t.drain()
+        steps.append(("nic_dead: probe, fence, promotion", _cluster_state(cluster, [cfe, cfe2])))
+        cluster.bootstrap_directory()
+        cold = ClusterFrontEnd(cluster, _cluster_durable(), fe_id=5)
+        keys = sorted(model)
+        got = ShardedHashTable(cold, "t", n_buckets=256).get_many(keys)
+        steps.append(("bootstrap_directory, cold read",
+                      _cluster_state(cluster, [cfe, cfe2, cold])))
+        extra = {"caught_up": mig["caught_up"], "failovers": cluster.failovers,
+                 "epoch": cluster.directory.epoch, "injected": dict(inj.injected),
+                 "keys": len(keys), "ok": got == [model[k] for k in keys]
+                 and cluster.failovers >= 2 and inj.injected.get("nic_dead") == 1}
+        if sess is not None:
+            doc = json.loads(json.dumps(sess.tracer.to_chrome()))
+            rep = {"validate": report.validate(doc), "fault_summary": report.fault_summary(doc),
+                   "span_names": dict(sorted(report.span_names(doc).items())),
+                   "top_self_time": report.top_self_time(doc),
+                   "wave_widths": report.wave_widths(doc),
+                   "blade_tracks": report.blade_tracks(doc)}
+            steps.append(("report", rep))
+            fired = {k[len("fault:"):]: n for k, n in rep["fault_summary"].items()
+                     if k.startswith("fault:")}
+            extra.update(rep, summary=report.summarize(doc), trace_events=len(doc["traceEvents"]))
+            extra["ok"] = extra["ok"] and rep["validate"] == [] and fired == extra["injected"]
+        return steps, extra
+    finally:
+        if sess is not None:
+            obs.stop()
+
+
+def _cluster_chaos(dev):
+    """fig_availability.run_sweep (schedule s ensures ALL_FAULT_KINDS[s %
+    11]), then run_steal_schedule over 8 seeds: each ChaosResult and the
+    state of the faulty cluster each run left."""
+    from repro_torch.faults import ALL_FAULT_KINDS, harness
+
+    n_schedules, n_ops, n_blades, n_faults = CLUSTER_CHAOS
+    base, built = harness.NVMCluster, []
+
+    class Kept(base):  # the harness's clusters, the faulty one first
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    steps, kinds = [], {}
+    total = dict.fromkeys(("violations", "promotions", "failovers_initiated", "acked",
+                           "failed", "steals", "fenced_appends", "stale_epoch_entries"), 0)
+    harness.NVMCluster = Kept
+    try:
+        for s in range(n_schedules + CLUSTER_STEAL_SEEDS):
+            if s < n_schedules:
+                r = harness.run_chaos_schedule(
+                    s, n_ops=n_ops, n_blades=n_blades, n_faults=n_faults,
+                    ensure=(ALL_FAULT_KINDS[s % len(ALL_FAULT_KINDS)],), device=dev)
+                name = f"chaos {s}"
+                for k, n in r.injected.items():
+                    kinds[k] = kinds.get(k, 0) + n
+                total["acked"] += r.acked
+                total["failed"] += r.failed
+            else:
+                r = harness.run_steal_schedule(s - n_schedules, device=dev)
+                name = f"steal {s - n_schedules}"
+                total["steals"] += r.stats["write_lease_steals"]
+                total["fenced_appends"] += r.stats["fenced_appends"]
+            stale = harness._stale_epoch_total(built[0])
+            steps.append((name, {"result": dataclasses.asdict(r), "stale": stale,
+                                 "cluster": _cluster_state(built[0])}))
+            built.clear()
+            total["violations"] += len(r.violations)
+            total["promotions"] += r.promotions
+            total["failovers_initiated"] += r.failovers_initiated
+            total["stale_epoch_entries"] += stale
+    finally:
+        harness.NVMCluster = base
+    return steps, {**total, "injected_by_kind": dict(sorted(kinds.items())),
+                   "ok": total["violations"] == 0 and set(kinds) == set(ALL_FAULT_KINDS)
+                   and total["steals"] > 0 and total["stale_epoch_entries"] == 0}
+
+
+def _cluster_apps(dev):
+    """benchmarks/run.py's apps: SmallBank (50,000 accounts) and TATP (5,000
+    subscribers, populated) under sym, naive, r and rc, each on one 64 MB
+    blade, run_mix(write_frac=1.0, seed=1); virtual KOPS, and the wall
+    seconds of each run_mix (the card's in the step's line)."""
+    from repro_torch.core import FEConfig, FrontEnd, NVMBackend
+    from repro_torch.core.apps import TATP, SmallBank
+
+    accounts, subscribers, n_ops = CLUSTER_APPS
+    variants = {"sym": lambda: FEConfig(symmetric=True), "naive": FEConfig.naive,
+                "r": FEConfig.r, "rc": FEConfig.rc}
+    steps, kops, mix_s = [], {}, {}
+    for app in ("smallbank", "tatp"):
+        for variant, cfg in variants.items():
+            be = NVMBackend(capacity=CLUSTER_BLADE, device=dev)
+            fe = FrontEnd(be, cfg())
+            if app == "smallbank":
+                obj = SmallBank(fe, "sb", n_accounts=accounts)
+            else:
+                obj = TATP(fe, "tp", n_subscribers=subscribers)
+                obj.populate(subscribers)
+            t0, w0 = fe.clock.now, time.perf_counter()
+            obj.run_mix(n_ops, write_frac=1.0, seed=1)
+            if app == "smallbank":
+                fe.drain(obj.h)
+            else:
+                obj.drain()
+            kops[f"{app} x {variant}"] = n_ops / (fe.clock.now - t0) * 1e6
+            mix_s[f"{app} x {variant}"] = time.perf_counter() - w0
+            steps.append((f"{app} x {variant}", _nvm_state(be, fe)))
+    return steps, {"kops": kops, "run_mix_s": mix_s, "ok": True}
+
+
+def phase_cluster(torch):
+    """The AsymNVM cluster on the card, each step against the same step on a
+    CPU cluster: README's quick start, the scaling figure (8 blades of 64 MB
+    with a mirror each, and its --smoke sizes at 1, 2 and 4 blades), replica
+    reads, migration and failures, the chaos sweep, SmallBank and TATP, and
+    the failure story again under a tracer.  Returns K1's and K2's launches
+    over the phase."""
+    import gc
+
+    from repro_torch.kernels import nvm_log
+
+    t0 = time.perf_counter()
+    nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    failed, seconds = [], {}
+
+    def step(name, scenario, n_ops=None, **line):
+        steps, _, extra, card_s, cpu_s, differ = _nvm_pair(torch, scenario)
+        gc.collect()
+        seconds[name] = {"card_s": card_s, "cpu_s": cpu_s}
+        if n_ops:
+            seconds[name].update(card_ms_per_op=card_s * 1e3 / n_ops,
+                                 cpu_ms_per_op=cpu_s * 1e3 / n_ops)
+        emit({"phase": "cluster", "step": name, **line, **seconds[name],
+              "equal": differ is None, "differ": differ, "compared": len(steps),
+              **{k: v for k, v in extra.items() if k != "summary"}})
+        if differ is not None or not extra["ok"]:
+            failed.append(f"{name}: differs at {differ}, ok {extra['ok']}")
+        return extra
+
+    step("quickstart", _cluster_quickstart, blades=4, shards=16, blade_mb=64)
+    for n_blades, n_fes, preload, ops in CLUSTER_SCALING:
+        step(f"scaling {n_blades} blades", _cluster_scaling(n_blades, n_fes, preload, ops),
+             n_ops=n_fes * (preload + ops), blades=n_blades, frontends=n_fes, preload=preload,
+             ops=ops, blade_mb=64, mirrors=1)
+    n_blades, n_fes, preload, ops = CLUSTER_READS
+    step("replica reads", _cluster_replica_reads, n_ops=2 * n_fes * (preload + ops),
+         blades=n_blades, frontends=n_fes, preload=preload, ops=ops, mirrors=1)
+    step("migration and failures", _cluster_failure_story, blades=3, shards=8, blade_mb=64)
+    step("chaos", _cluster_chaos, schedules=CLUSTER_CHAOS[0], ops=CLUSTER_CHAOS[1],
+         blades=CLUSTER_CHAOS[2], faults=CLUSTER_CHAOS[3], steal_seeds=CLUSTER_STEAL_SEEDS)
+    step("apps", _cluster_apps, accounts=CLUSTER_APPS[0], subscribers=CLUSTER_APPS[1],
+         ops=CLUSTER_APPS[2], blade_mb=64)
+    traced = step("trace", lambda dev: _cluster_failure_story(dev, traced=True))
+    print(traced["summary"], flush=True)
+    launches = {"fletcher64_segments": nvm_log.fletcher64_launches,
+                "apply_runs": nvm_log.apply_launches}
+    if not all(launches.values()):
+        failed.append(f"a blade kernel never launched: {launches}")
+    emit({"phase": "cluster", "launches": launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds_by_step": seconds, "seconds": time.perf_counter() - t0,
+          "reduced": CLUSTER_REDUCED, "ok": not failed, "failed": failed})
+    if failed:
+        raise AssertionError(f"cluster: {failed}")
+    return launches
+
+
 def _fail(reason: str) -> int:
     """An early exit: its reason on stderr and as one line on stdout, no result."""
     print(f"chip_smoke: {reason}", file=sys.stderr, flush=True)
@@ -2933,27 +3378,36 @@ def main(argv=None) -> int:
                           if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "ptxas": regs})
 
-    cases = phase_kernels(torch) if "kernel" in only else None
-    if "parity" in only:
-        phase_parity(torch)
-    served = phase_serve(torch) if "serve" in only else None
-    if "profile" in only:
-        phase_profile(torch, "llama3.2-3b", 1024)
-        phase_profile(torch, "recurrentgemma-9b", 3072)
-        phase_profile(torch, "falcon-mamba-7b", 1024)
-        phase_profile(torch, "stablelm-12b", 1024)
-        phase_profile(torch, "kimi-k2-1t-a32b", 256, layers=2)
-    if "store" in only:
-        phase_store(torch)
-    train = phase_train(torch) if "train" in only else None
-    recurrent = phase_train_recurrent(torch) if "train_recurrent" in only else None
-    stablelm = phase_train_stablelm(torch) if "train_stablelm" in only else None
-    parity = phase_train_parity(torch) if "train_parity" in only else None
-    lifecycle = phase_lifecycle(torch) if "lifecycle" in only else None
-    mesh = phase_mesh(torch) if "mesh" in only else None
-    nvm = phase_nvm(torch) if "nvm" in only else None
+    def run(phase, fn, *args, **kwargs):
+        """fn(*args) when `phase` was asked for, else None.  A phase that
+        stalls past PHASE_STALL_S prints every thread's Python stack to
+        stderr, and again every PHASE_STALL_S after; nothing else changes."""
+        if phase not in only:
+            return None
+        faulthandler.dump_traceback_later(PHASE_STALL_S, repeat=True)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+
+    cases = run("kernel", phase_kernels, torch)
+    run("parity", phase_parity, torch)
+    served = run("serve", phase_serve, torch)
+    for arch, prompt, layers in (("llama3.2-3b", 1024, None), ("recurrentgemma-9b", 3072, None),
+                                 ("falcon-mamba-7b", 1024, None), ("stablelm-12b", 1024, None),
+                                 ("kimi-k2-1t-a32b", 256, 2)):
+        run("profile", phase_profile, torch, arch, prompt, layers=layers)
+    run("store", phase_store, torch)
+    train = run("train", phase_train, torch)
+    recurrent = run("train_recurrent", phase_train_recurrent, torch)
+    stablelm = run("train_stablelm", phase_train_stablelm, torch)
+    parity = run("train_parity", phase_train_parity, torch)
+    lifecycle = run("lifecycle", phase_lifecycle, torch)
+    mesh = run("mesh", phase_mesh, torch)
+    nvm = run("nvm", phase_nvm, torch)
+    cluster = run("cluster", phase_cluster, torch)
     emit({"phase": "time", "seconds": time.perf_counter() - t_start})
-    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle, mesh, nvm):
+    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle, mesh, nvm, cluster):
         return 0  # a partial run checks what it ran and claims nothing more
 
     # each kernel's launches over the phase of the main path that runs it:
@@ -3101,8 +3555,9 @@ def main(argv=None) -> int:
         c = nvm[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/nvm_log.cu",
-                        "replaces": replaces, "launches": c["launches"],
-                        "launches_from": "nvm", "launches_by_phase": {"nvm": c["launches"]},
+                        "replaces": replaces, "launches": c["launches"] + cluster[name],
+                        "launches_from": "nvm+cluster",
+                        "launches_by_phase": {"nvm": c["launches"], "cluster": cluster[name]},
                         "case": c["case"],
                         "max_abs_err": 0.0 if c["equal_plain"] else None, "ms": c["kernel_ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -1014,3 +1014,65 @@ def test_hashtable_on_a_card_blade_equals_the_cpu_blade(cuda):
     on_card = run(cuda)
     assert nvm_log.apply_launches > c
     assert on_card == run("cpu")
+
+
+def _two_blade_cluster(device):
+    """A two-blade cluster through a migration with writes in its copy
+    window, a power loss inside a replay (the front ends' checksum memo
+    cleared, so the reboot verifies the committed bodies on the blade) and a
+    promotion the data path makes: what must agree between the card and the
+    CPU, and what was read back."""
+    import dataclasses as dc
+
+    from repro_torch.cluster import ClusterFrontEnd, NVMCluster, ShardedHashTable, migrate_shard
+    from repro_torch.core import CrashError, FEConfig, oplog
+
+    cluster = NVMCluster(n_blades=2, capacity_per_blade=1 << 23, n_shards=8, device=device)
+    a = ClusterFrontEnd(cluster, FEConfig.rc(cache_bytes=4096, oplog_pipeline=1), fe_id=0)
+    b = ClusterFrontEnd(cluster, FEConfig.rcb(cache_bytes=4096), fe_id=1)
+    ta, tb = ShardedHashTable(a, "t", n_buckets=256), ShardedHashTable(b, "t", n_buckets=256)
+    for k in range(200):
+        ta.put(k, k)
+    ta.drain()
+
+    def during_copy():
+        for k in range(500, 540):
+            tb.put(k, k + 1)
+        tb.drain()
+    migrate_shard(ta, 3, cluster.add_blade(), during_copy=during_copy)
+    for k in range(20000, 20060):
+        tb.put(k, k)
+    cluster.blades[0].schedule_torn_write(0, after_writes=4)
+    try:
+        b.drain_all()
+    except CrashError:
+        pass
+    oplog._CSUM_CACHE.clear()
+    cluster.blades[1].fail_permanently()
+    for k in range(200, 260):
+        ta.put(k, k)
+    ta.drain()
+    got = ta.get_many(list(range(260)) + list(range(500, 540)))
+    blades = [([hashlib.sha256(x.cpu().numpy()).hexdigest()
+                for x in (be.arena, *(m.arena for m in be.mirrors))],
+               be.clock.now, dc.asdict(be.stats), be.device.type)
+              for _, be in sorted(cluster.blades.items())]
+    return (blades, cluster.directory.encode(), cluster.leases.encode(), cluster.failovers,
+            [(c.clock.now, c.stats(), c.telemetry()) for c in (a, b)], got)
+
+
+def test_two_blade_cluster_on_the_card_equals_the_cpu_cluster(cuda):
+    """The same cluster story on the card and on the CPU: every blade's
+    arena and mirror digests, the directory's and the lease table's bytes,
+    the clocks, Stats and telemetry are equal, and the card's blades
+    replayed their logs with K2 and verified bodies with K1."""
+    from repro_torch.kernels import nvm_log
+
+    k1, k2 = nvm_log.fletcher64_launches, nvm_log.apply_launches
+    on_card = _two_blade_cluster(cuda)
+    assert nvm_log.apply_launches > k2 and nvm_log.fletcher64_launches > k1
+    assert {t for *_, t in on_card[0]} == {"cuda"}
+    on_cpu = _two_blade_cluster("cpu")
+    assert [b[:3] for b in on_card[0]] == [b[:3] for b in on_cpu[0]]
+    assert on_card[1:] == on_cpu[1:]
+    assert on_card[3] == 1 and on_card[-1] == list(range(260)) + list(range(501, 541))

@@ -165,7 +165,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     assert {"repro_torch.kernels.flash_attention", "repro_torch.kernels.mamba_scan",
             "repro_torch.kernels.rglru_scan", "repro_torch.serving.engine",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.cluster.router",
+            "repro_torch.cluster.sharded", "repro_torch.faults.harness",
+            "repro_torch.core.apps.tatp", "repro_torch.obs.report"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', 'repro') "
