@@ -138,10 +138,17 @@ It prints one JSON object per line, one line per phase:
            larger mesh adds), llama3.2-3b training (28 layers, bf16, AdamW,
            3 steps of 4 x 1024, fsdp rules) and serving (batch 4, prompt
            1024, 32 new, decode rules) bitwise with equal launches, each
-           path's step, prefill and decode ms; kimi-k2's MoE block with
-           ep_a2a against dense (tests/test_torch_moe.py's bound);
-           pipeline_apply at one stage over llama's blocks; and the mesh
-           trainer's full and delta commits restored bitwise without a mesh
+           path's step, prefill and decode ms; falcon-mamba-7b (4 layers)
+           and recurrentgemma-9b (6) at published widths on the recurrent
+           mixers' channel route: step-0 gradients, 2 Adafactor steps, a
+           prefill of 4 x 1024 and 8 decode steps, all bitwise, the scans'
+           launches equal (the kernels line's "mesh" launches); kimi-k2's
+           MoE block with ep_a2a against dense (tests/test_torch_moe.py's
+           bound), its output and, under a gradient, x's and every
+           weight's gradient; pipeline_apply at one stage over llama's
+           blocks, and its gradient against the microbatches run in
+           sequence (2 blocks); and the mesh trainer's full and delta
+           commits restored bitwise without a mesh
   nvm      the single-blade AsymNVM machine (repro_torch.core): blades whose
            arenas live on the card, each step run again on a CPU blade in the
            same process, and the arena and mirror digests (sha256), the
@@ -202,7 +209,7 @@ It prints one JSON object per line, one line per phase:
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
 script exits non-zero without it.  A phase that runs past PHASE_STALL_S
-prints every thread's Python stack to stderr (faulthandler) and goes on.  It also exits non-zero, with no result,
+prints every thread's Python stack to stderr (_watched) and goes on.  It also exits non-zero, with no result,
 when no CUDA device is available or src/repro_torch is not beside it: its
 reason goes to stderr and, as {"phase": "exit", "ok": false, ...}, to stdout.
 """
@@ -211,21 +218,23 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import faulthandler
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 # a phase still running after this many seconds prints every thread's stack
-# to stderr (faulthandler), and again every as many seconds; the run goes on
+# to stderr (_watched), and again every as many seconds; the run goes on
 PHASE_STALL_S = 300
+KERNEL_NAME_CHARS = 160
 PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_recurrent",
           "train_stablelm", "train_parity", "lifecycle", "mesh", "nvm", "cluster")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
@@ -1255,6 +1264,15 @@ def phase_serve(torch):
     return total, by_arch
 
 
+def _kernel_name(name: str) -> str:
+    """A profiled kernel's name for the top lists: ATen's namespaces and the
+    return type dropped, so the functor (a fill, an add, a copy) shows, up
+    to KERNEL_NAME_CHARS characters."""
+    for cut in ("void ", "at::native::", "(anonymous namespace)::"):
+        name = name.replace(cut, "")
+    return name[:KERNEL_NAME_CHARS]
+
+
 def phase_profile(torch, arch, prompt, layers=None):
     """Where a request's time goes: one prefill and three decode steps of
     the published `arch` (cut to `layers`, as the serve phase runs it) under
@@ -1306,7 +1324,7 @@ def phase_profile(torch, arch, prompt, layers=None):
                           "device_ms": device_ms,
                           "device_idle_share": max(0.0, 1 - device_ms / (wall * 1e3 / steps)),
                           "kernel_launches": launches / steps,
-                          "top_device_ms": [[k[:60], v] for k, v in top]}
+                          "top_device_ms": [[_kernel_name(k), v] for k, v in top]}
         del cache
     emit(line)
     del params
@@ -1473,7 +1491,7 @@ def _train_profile(torch, arch="llama3.2-3b", opt=None, batch=TRAIN_BATCH, phase
             "optimizer": tcfg.opt.kind, "global_batch": batch["tokens"].shape[0],
             "wall_ms": wall * 1e3, "host_enqueue_ms": enqueue * 1e3, "device_ms": device_ms,
             "device_idle_share": max(0.0, 1 - device_ms / (wall * 1e3)),
-            "kernel_launches": launches, "top_device_ms": [[k[:60], v] for k, v in top]}
+            "kernel_launches": launches, "top_device_ms": [[_kernel_name(k), v] for k, v in top]}
     for label, subs in (shares or {}).items():
         ms = sum(v for k, v in dev.items() if any(sub in k for sub in subs))
         line[f"{label}_device_ms"], line[f"{label}_share"] = ms, ms / device_ms
@@ -1557,8 +1575,9 @@ def _remat_steps(torch, arch, batch):
     `arch` (bf16, Adafactor with bf16 momentum, seed 0, the first batch of
     `batch` x TRAIN_SEQ tokens) under each of REMAT_MODES, set with
     dataclasses.replace, in deterministic mode as the trainer runs its
-    steps: peak memory, each step's ms (the first from an empty allocator
-    cache), each kernel's launches in the first, its gradients bitwise
+    steps: peak memory, the memory the forward keeps for the backward
+    (which "full" must lower), each step's ms (the first from an empty
+    allocator cache), each kernel's launches in the first, its gradients bitwise
     against "none"'s (kept on the host), and both losses equal.  The
     recomputed forwards launch the forward kernels again; the backward
     kernels run once."""
@@ -1582,13 +1601,15 @@ def _remat_steps(torch, arch, batch):
         torch.cuda.synchronize()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        step_ms, losses, peak = [], [], 0
+        step_ms, losses, peak, kept = [], [], 0, 0
         for step in range(2):  # the first from an empty allocator cache, then a second
             torch.cuda.reset_peak_memory_stats()
             with deterministic_cuda(), torch.enable_grad():
                 t0 = time.perf_counter()
                 live = {n: p.detach().requires_grad_(True) for n, p in flatten_named(params)}
+                before = torch.cuda.memory_allocated()
                 loss = model.loss(tree_map_named(lambda n, _: live[n], params), data)
+                kept = max(kept, torch.cuda.memory_allocated() - before)
                 grads = torch.autograd.grad(loss, list(live.values()))
                 float(apply_opt(params, list(grads), state["opt"], tcfg.opt, state["step"]))
                 step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1603,6 +1624,7 @@ def _remat_steps(torch, arch, batch):
             state["step"] += 1
             del live, loss, grads
         line["modes"][mode] = {"max_memory_allocated": peak,
+                               "forward_kept_bytes": kept,
                                "step_ms": step_ms, "losses": losses,
                                "grads_bitwise_none": bitwise, "launches": launches}
         del state, params
@@ -1617,8 +1639,11 @@ def _remat_steps(torch, arch, batch):
         if (not got["grads_bitwise_none"] or got["launches"] != want
                 or got["losses"] != line["modes"]["none"]["losses"]):
             raise AssertionError(f"remat {arch} {mode}: {got}, launches want {want}")
-    if not (line["modes"]["full"]["max_memory_allocated"]
-            < line["modes"]["none"]["max_memory_allocated"]):
+    # remat saves what the forward keeps for the backward; the step's peak is
+    # held by what every mode keeps alike (parameters, optimizer state,
+    # gradients) since the stacked gradient is written once
+    if not (line["modes"]["full"]["forward_kept_bytes"]
+            < line["modes"]["none"]["forward_kept_bytes"]):
         raise AssertionError(f"remat {arch}: full does not save memory: {line['modes']}")
 
 
@@ -2023,6 +2048,13 @@ MESH_TRAIN_STEPS = 3
 MESH_SERVE = dict(batch=4, prompt=1024, max_new=32)
 MESH_MOE = dict(num_experts=8, top_k=2, capacity_factor=8.0)
 MOE_TOL = dict(atol=2e-4, rtol=1e-3)                        # tests/test_torch_moe.py
+# the recurrent mixers on their channel route: (arch, layers, the cut, batch of
+# TRAIN_SEQ tokens); falcon-mamba-7b's layers are one stacked group of 4
+MESH_RECURRENT = (("falcon-mamba-7b", 4, "depth 64 -> 4; widths as published", 1),
+                  ("recurrentgemma-9b", 6, "depth 38 -> 6, two (rglru, rglru, local_attn) "
+                   "patterns; widths as published", 2))
+MESH_RECURRENT_STEPS, MESH_RECURRENT_DECODE = 2, 8
+SCAN_KERNELS = ("mamba_scan", "mamba_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 
 
 def _mesh_world(torch, tmp):
@@ -2249,14 +2281,35 @@ def _mesh_moe(torch, mesh):
             times[name] = float(np.median(ts))
     err = float((got - want).abs().max())
     close = bool(torch.allclose(got, want, **MOE_TOL))
+    # under a gradient: sum(y * r)'s gradients of x and every weight, ep_a2a
+    # on the mesh against dense without one
+    r = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    grads = {}
+    for path in ("dense", "ep_a2a"):
+        ps = {n: (pm if path == "ep_a2a" else p)[n].detach().requires_grad_(True) for n in p}
+        xx = (xm if path == "ep_a2a" else x).detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = (moe.moe_apply(ps, xx, cfg_a2a, rules, mesh) if path == "ep_a2a" else
+                 moe.moe_apply(ps, xx, cfg_dense))
+            if path == "ep_a2a":
+                y = y.to_local()
+            got_g = torch.autograd.grad((y * r).sum(), [xx] + list(ps.values()))
+        grads[path] = {n: (g.to_local() if hasattr(g, "to_local") else g)
+                       for n, g in zip(["x"] + list(ps), got_g)}
+    grad_errs = {n: float((grads["ep_a2a"][n] - t).abs().max()) for n, t in grads["dense"].items()}
+    grad_close = all(torch.allclose(grads["ep_a2a"][n], t, **MOE_TOL)
+                     for n, t in grads["dense"].items())
     line = {"arch": "kimi-k2-1t-a32b", "block": "MoE (layer 1 of 2)", "dtype": "float32",
             "cut": "experts 384 -> 8, top-8 -> top-2; widths as published",
             "tokens": 4 * 256, "impl": moe._impl(cfg_a2a, mesh), "max_abs_err": err,
             "tol": MOE_TOL, "close": close, "dense_ms": times["dense"],
-            "ep_a2a_ms": times["ep_a2a"]}
-    del p, pm, x, xm
+            "ep_a2a_ms": times["ep_a2a"],
+            "grad": {"max_abs_err": max(grad_errs.values()), "by_leaf": grad_errs,
+                     "close": grad_close}}
+    del p, pm, x, xm, grads
     torch.cuda.empty_cache()
-    return line, close and line["impl"] == "ep_a2a"
+    return line, close and grad_close and line["impl"] == "ep_a2a"
 
 
 def _mesh_pipeline(torch):
@@ -2296,6 +2349,183 @@ def _mesh_pipeline(torch):
     del params, stage, x
     torch.cuda.empty_cache()
     return line, err <= atol * scale and launches == 4 * cfg.n_layers
+
+
+def _mesh_recurrent(torch, mesh):
+    """falcon-mamba-7b and recurrentgemma-9b at published widths, depth cut
+    (MESH_RECURRENT), on the 1 x 1 mesh's channel route (no mixer takes
+    layers._mixer_rows) against the mesh-less path, from the same weights
+    (seed 0) and batch: the step-0 loss and every gradient leaf, then
+    MESH_RECURRENT_STEPS Adafactor steps (bf16 momentum; losses, grad norms,
+    every updated parameter), then a prefill of MESH_SERVE's batch and
+    prompt and MESH_RECURRENT_DECODE greedy decode steps (every step's
+    logits), all bitwise, with the scans' launches equal.  Returns the
+    lines, whether all held and the scans' launches on the mesh path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import DecoderLM, layers
+    from repro_torch.models.params import place, placements_of, shard
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.training import OptConfig, TrainConfig, init_train_state, make_train_step
+    from repro_torch.training.train_step import state_shardings
+    from repro_torch.training.trainer import deterministic_cuda
+    from repro_torch.tree import flatten_named, tree_map_named
+
+    counters = {k: v for k, v in _kernel_counters().items() if k in SCAN_KERNELS}
+    rows = [0]
+    to_rows = layers._mixer_rows
+
+    def counted(*args, **kwargs):
+        rows[0] += 1
+        return to_rows(*args, **kwargs)
+
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
+    lines, ok, total = [], True, dict.fromkeys(SCAN_KERNELS, 0)
+    b, s, n = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_RECURRENT_DECODE
+    for arch, depth, cut, batch in MESH_RECURRENT:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        model = DecoderLM(cfg)
+        tcfg = TrainConfig(opt=OptConfig(kind="adafactor", lr=1e-3, momentum_dtype="bfloat16"))
+        rules = rules_for(cfg, mesh, kind="train")
+        data = _train_batch(torch, cfg.vocab_size, batch)
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+        runs = {}
+        layers._mixer_rows = counted
+        try:
+            for path in ("plain", "mesh"):
+                for mod, attr in counters.values():
+                    setattr(mod, attr, 0)
+                rows[0] = 0
+                state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0),
+                                         tcfg)
+                on = {}
+                if path == "mesh":
+                    state = place(state, state_shardings(model, tcfg, rules, mesh), mesh)
+                    on = dict(rules=rules, mesh=mesh)
+                    batch_in = {k: shard(v, placements_of(v.shape, ("act_batch",), mesh, rules),
+                                         mesh) for k, v in data.items()}
+                else:
+                    batch_in = data
+                t0 = time.perf_counter()
+                with deterministic_cuda():
+                    live = {n_: p.detach().requires_grad_(True)
+                            for n_, p in flatten_named(state["params"])}
+                    with torch.enable_grad():
+                        loss = model.loss(tree_map_named(lambda n_, _: live[n_],
+                                                         state["params"]), batch_in, **on)
+                        grads = torch.autograd.grad(loss, list(live.values()))
+                    grads = {n_: local(g) for n_, g in zip(live, grads)}
+                    loss0 = local(loss).detach()
+                    del live, loss
+                    step = make_train_step(model, tcfg, **on)
+                    mets = []
+                    for _ in range(MESH_RECURRENT_STEPS):
+                        state, m = step(state, batch_in)
+                        mets.append({k: local(v).detach() for k, v in m.items()})
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                tree = state["params"]
+                params = {n_: local(t) for n_, t in flatten_named(tree)}
+                del state, step
+                scfg = ServeConfig(batch_slots=b, max_new_tokens=n + 1)
+                eng = (ServeEngine(model, tree, scfg, device="cuda") if path == "plain" else
+                       ServeEngine(model, tree, scfg, rules_for(cfg, mesh, kind="decode"), mesh))
+                del tree
+                logits = _serve_logits(torch, eng, prompts, n)
+                runs[path] = {"loss0": loss0, "grads": grads, "metrics": mets, "params": params,
+                              "logits": logits, "train_s": train_s, "mixer_rows": rows[0],
+                              "launches": {k: getattr(m_, a) for k, (m_, a) in counters.items()}}
+                del eng
+        finally:
+            layers._mixer_rows = to_rows
+        a, m = runs["plain"], runs["mesh"]
+        same = lambda x, y: sorted(x) == sorted(y) and all(  # noqa: E731
+            torch.equal(x[k], y[k]) for k in x)
+        bitwise = {"loss0": bool(torch.equal(a["loss0"], m["loss0"])),
+                   "grads": same(a["grads"], m["grads"]),
+                   "losses": [bool(torch.equal(x["loss"], y["loss"]))
+                              for x, y in zip(a["metrics"], m["metrics"])],
+                   "grad_norms": [bool(torch.equal(x["grad_norm"], y["grad_norm"]))
+                                  for x, y in zip(a["metrics"], m["metrics"])],
+                   "params": same(a["params"], m["params"]),
+                   "prefill_logits": bool(torch.equal(a["logits"][0], m["logits"][0])),
+                   "decode_logits": [bool(torch.equal(x, y))
+                                     for x, y in zip(a["logits"][1:], m["logits"][1:])]}
+        line = {"arch": arch, "layers": depth, "reduced": cut, "dtype": "bfloat16",
+                "optimizer": "adafactor", "momentum_dtype": "bfloat16", "global_batch": batch,
+                "seq_len": TRAIN_SEQ, "steps": MESH_RECURRENT_STEPS, "serve_batch": b,
+                "prompt_len": s, "decode_steps": n, "route": "channels",
+                "gradient_leaves": len(a["grads"]),
+                "losses": [float(x["loss"]) for x in m["metrics"]],
+                "grad_norms": [float(x["grad_norm"]) for x in m["metrics"]],
+                "bitwise": bitwise, "mixer_rows_calls": m["mixer_rows"],
+                "launches": {"plain": a["launches"], "mesh": m["launches"]},
+                "train_s": {"plain": a["train_s"], "mesh": m["train_s"]}}
+        lines.append(line)
+        flat = [v for v in bitwise.values() for v in (v if isinstance(v, list) else [v])]
+        ok &= all(flat) and m["mixer_rows"] == 0 and a["launches"] == m["launches"] and all(
+            m["launches"][k] > 0 for k in (("mamba_scan", "mamba_scan_bwd") if arch.startswith(
+                "falcon") else ("rglru_scan", "rglru_scan_bwd")))
+        for k in SCAN_KERNELS:
+            total[k] += m["launches"][k]
+        del runs, a, m
+        torch.cuda.empty_cache()
+    return lines, ok, total
+
+
+def _mesh_pipeline_grad(torch):
+    """pipeline_apply's gradient at one stage ("stage" mesh of 1): llama3.2-3b
+    at published widths cut to 2 blocks (bf16), 4 x 1024 rows in 4
+    microbatches, loss sum(y * r) in fp32: the gradients of the stage's
+    parameters and of x against autograd of the same microbatches run
+    through the blocks in sequence, within train_parity's bf16 bound of
+    each one's scale; whether they are bitwise too."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.training.pipeline import pipeline_apply
+    from repro_torch.tree import flatten_named, tree_map_named
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2)
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    smesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn((4, 1024, cfg.d_model), generator=g, device="cuda") * 0.02).to(
+        cfg.torch_dtype)
+    r = torch.randn((4, 1024, cfg.d_model), generator=g, device="cuda")
+
+    def stage_fn(p, h):
+        return model._run_blocks(p, h, "train", None, None)
+
+    grads = {}
+    for path in ("pipeline", "sequence"):
+        leaves = {n: t.detach()[None].clone().requires_grad_(True) if path == "pipeline" else
+                  t.detach().clone().requires_grad_(True)
+                  for n, t in flatten_named({"blocks": params["blocks"]})}
+        tree = tree_map_named(lambda n, _: leaves[n], {"blocks": params["blocks"]})
+        xl = x.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            if path == "pipeline":
+                y = pipeline_apply(stage_fn, tree, xl, smesh, axis="stage", n_micro=4)
+            else:
+                y = torch.cat([stage_fn(tree, xl[i:i + 1]) for i in range(4)])
+            got = torch.autograd.grad((y.float() * r).sum(), [xl] + list(leaves.values()))
+        grads[path] = {"x": got[0], **{n: (t[0] if path == "pipeline" else t)
+                                       for n, t in zip(leaves, got[1:])}}
+    atol, _ = TRAIN_PARITY_TOL["bfloat16"]
+    errs = {n: float((grads["pipeline"][n].float() - t.float()).abs().max()
+                     / max(float(t.float().abs().max()), 1e-30))
+            for n, t in grads["sequence"].items()}
+    bitwise = all(torch.equal(grads["pipeline"][n], t) for n, t in grads["sequence"].items())
+    line = {"arch": "llama3.2-3b", "layers": 2, "reduced": "depth 28 -> 2; widths as published",
+            "dtype": "bfloat16", "stages": 1, "n_micro": 4, "batch": 4, "seq_len": 1024,
+            "gradient_leaves": len(errs), "max_err_rel_to_scale": max(errs.values()),
+            "tol": atol, "bitwise": bitwise}
+    del params, grads, x, r
+    torch.cuda.empty_cache()
+    return line, max(errs.values()) <= atol
 
 
 def _mesh_store(torch, mesh, tmp):
@@ -2389,25 +2619,29 @@ def phase_mesh(torch):
             checks, ok_checks = _mesh_kernel_checks(torch)
             train, ok_train, train_launches = _mesh_train(torch, mesh)
             serve, ok_serve, serve_launches = _mesh_serve(torch, mesh)
+            recurrent, ok_recurrent, scan_launches = _mesh_recurrent(torch, mesh)
             moe_line, ok_moe = _mesh_moe(torch, mesh)
             pipe, ok_pipe = _mesh_pipeline(torch)
+            pipe_grad, ok_pipe_grad = _mesh_pipeline_grad(torch)
             store, ok_store = _mesh_store(torch, mesh, tmp)
         finally:
             dist.destroy_process_group()
     line = {"phase": "mesh", "mesh": {"shape": [1, 1], "axes": ["data", "model"],
                                       "backend": "nccl"},
-            "kernel_checks": checks, "train": train, "serve": serve, "moe": moe_line,
-            "pipeline": pipe, "store": store, "seconds": time.perf_counter() - t0}
+            "kernel_checks": checks, "train": train, "serve": serve, "recurrent": recurrent,
+            "moe": moe_line, "pipeline": pipe, "pipeline_grad": pipe_grad, "store": store,
+            "seconds": time.perf_counter() - t0}
     emit(line)
-    oks = {"kernel_checks": ok_checks, "train": ok_train, "serve": ok_serve, "moe": ok_moe,
-           "pipeline": ok_pipe, "store": ok_store}
+    oks = {"kernel_checks": ok_checks, "train": ok_train, "serve": ok_serve,
+           "recurrent": ok_recurrent, "moe": ok_moe, "pipeline": ok_pipe,
+           "pipeline_grad": ok_pipe_grad, "store": ok_store}
     if not all(oks.values()):
         raise AssertionError(f"mesh: {oks}")
     return {"flash_attention": train_launches["flash_attention"]
             + serve_launches["flash_attention"],
             "flash_attention_bwd": train_launches["flash_attention_bwd"],
             "decode_attention": serve_launches["decode_attention"],
-            **store["launches"]}
+            **scan_launches, **store["launches"]}
 
 
 # ----------------------------------------------------------- the simulator
@@ -3338,6 +3572,37 @@ def _fail(reason: str) -> int:
     return 1
 
 
+def _watched(phase, fn, *args, **kwargs):
+    """fn(*args) with a stall watchdog: a thread that, once the phase has
+    run PHASE_STALL_S, prints every thread's Python stack to stderr, and
+    again every PHASE_STALL_S after; nothing else changes.  It reads the
+    stacks under the GIL (sys._current_frames), so it sees a thread that
+    waits with the GIL released (a CUDA synchronize, a collective) and
+    misses one that spins holding it.  faulthandler's watchdog reads them
+    without the GIL, which is unsafe while other threads run (CUPTI's, the
+    profiler's): its dump crashed a live run (SIGSEGV) each time it fired."""
+    done = threading.Event()
+
+    def watch():
+        waited = 0
+        while not done.wait(PHASE_STALL_S):
+            waited += PHASE_STALL_S
+            names = {t.ident: t.name for t in threading.enumerate()}
+            out = [f"chip_smoke: phase {phase} still running after {waited} s"]
+            for ident, frame in sys._current_frames().items():
+                out.append(f"Thread {names.get(ident, ident)} (most recent call last):")
+                out.extend(ln.rstrip("\n") for ln in traceback.format_stack(frame))
+            print("\n".join(out), file=sys.stderr, flush=True)
+
+    watcher = threading.Thread(target=watch, name=f"stall-watch-{phase}", daemon=True)
+    watcher.start()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        done.set()
+        watcher.join()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -3379,16 +3644,9 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": regs})
 
     def run(phase, fn, *args, **kwargs):
-        """fn(*args) when `phase` was asked for, else None.  A phase that
-        stalls past PHASE_STALL_S prints every thread's Python stack to
-        stderr, and again every PHASE_STALL_S after; nothing else changes."""
-        if phase not in only:
-            return None
-        faulthandler.dump_traceback_later(PHASE_STALL_S, repeat=True)
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            faulthandler.cancel_dump_traceback_later()
+        """fn(*args) when `phase` was asked for, else None, under the stall
+        watchdog (_watched)."""
+        return _watched(phase, fn, *args, **kwargs) if phase in only else None
 
     cases = run("kernel", phase_kernels, torch)
     run("parity", phase_parity, torch)

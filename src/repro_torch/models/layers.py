@@ -17,9 +17,9 @@ their logical axes at the JAX package's points, and the kernels run on each
 rank's shards (``_attn_mesh``): attention on its own heads, or on its own
 query rows against the gathered keys and values (sequence-parallel), and
 decode over its own chunk of a length-sharded cache, the chunks merged by
-their log-sum-exp.  The recurrent mixers run data-parallel
-(``_mixer_mesh``).  A plain tensor takes the code it took before meshes
-existed.
+their log-sum-exp.  The recurrent mixers run on their channel shards
+over "model" where it divides them, else data-parallel (``_mixer_mesh``).
+A plain tensor takes the code it took before meshes existed.
 
 Where JAX's defaults differ from torch's, the port matches JAX by hand:
 ``jax.nn.gelu`` is the tanh approximation, and ``jax.nn.softplus`` is
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops
 from . import spmd
@@ -439,12 +439,21 @@ def rglru_apply(
     differentiable: ``ops.rglru_scan`` takes the forward and reverse-scan
     kernels on the card, their plain versions on the CPU."""
     if isinstance(x, DTensor):
-        return _mixer_mesh(rglru_apply, p, x, cfg, mode, cache)
-    B, S, _ = x.shape
+        return _mixer_mesh("rglru", p, x, cfg, mode, cache)
+    y = _rglru_mix(p, rmsnorm(x, p["norm"], cfg.norm_eps), cfg, mode, cache)
+    return x + y, (None if mode == "train" else cache)
+
+
+def _rglru_mix(p: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
+               cache: Optional[Dict]) -> torch.Tensor:
+    """The RG-LRU branch of the normed input `h`, up to its ``w_out``
+    product, writing `cache` in prefill and decode.  Its channels are
+    those of the weights: all of them, or on a mesh a rank's shard (whole
+    gate blocks), the output then its partial sum."""
+    B, S, _ = h.shape
     nb = p["w_r"].shape[0]
     dr = p["w_x"].shape[1]
     bs = dr // nb
-    h = rmsnorm(x, p["norm"], cfg.norm_eps)
     xb = h @ p["w_x"]
     gb = h @ p["w_gate"]
     conv_state = cache["conv"] if (cache is not None and mode == "decode") else None
@@ -466,29 +475,128 @@ def rglru_apply(
         states, hT = ops.rglru_scan(
             xc, r, gi, log_a, None, impl=cfg.attn_impl,
             scan_dtype=torch.bfloat16 if cfg.scan_bf16 else None)
-    y = F.gelu(gb, approximate="tanh") * states.to(x.dtype)
+    y = F.gelu(gb, approximate="tanh") * states.to(h.dtype)
     y = y @ p["w_out"]
     if mode == "train":
-        return x + y, None
+        return y
     if cache is None:
         raise ValueError("prefill needs the cache to fill")
     if mode == "prefill":
         new_conv = _left_pad_tail(xb, 3)
     cache["h"].copy_(hT)
     cache["conv"].copy_(new_conv)
-    return x + y, cache
+    return y
 
 
-def _mixer_mesh(apply, p: Params, x: DTensor, cfg: ModelConfig, mode: str,
+# a recurrent mixer's weights: the dim of each that holds its channels (None:
+# no channel dim); the gate blocks of RG-LRU's w_r and w_i are whole channels
+_CHANNEL_DIM = {
+    "mamba": {"norm": None, "w_in": 1, "conv_w": 1, "conv_b": 0, "w_xproj": 0, "w_dt": 1,
+              "b_dt": 0, "A_log": 0, "D": 0, "w_out": 0},
+    "rglru": {"norm": None, "w_x": 1, "w_gate": 1, "conv_w": 1, "w_r": 0, "w_i": 0,
+              "log_a": 0, "w_out": 0},
+}
+_CACHE_CHANNEL_DIM = {"h": 1, "conv": 2}   # {"h": [B, C(, N)], "conv": [B, K-1, C]}
+
+
+def _regroup(xz: torch.Tensor, ax: spmd.ModelAxis) -> torch.Tensor:
+    """``w_in``'s column-parallel product [..., 2c] holds this rank's
+    columns of [x | z], chunks 2i and 2i + 1 of their 2m chunks of c
+    columns; returns chunks i and m + i, this rank's x and z channels, by
+    one all_to_all (chunk k goes to rank k % m)."""
+    m, i = ax.size, ax.index
+    if m == 1:
+        return xz
+    c = xz.shape[-1] // 2
+    rows = xz.numel() // (2 * c)
+    chunks = xz.reshape(rows, 2, c).transpose(0, 1)            # chunks 2i, 2i + 1
+    dest = [(2 * i) % m, (2 * i + 1) % m]
+    if dest[0] > dest[1]:
+        chunks, dest = chunks.flip(0), dest[::-1]
+    src = [k // 2 for k in (i, m + i)]                         # ascending for m > 1
+    got = ax.all_to_all(chunks.reshape(2 * rows, c),
+                        [rows if r in src else 0 for r in range(m)],
+                        [rows if r in dest else 0 for r in range(m)])
+    return got.reshape(2, rows, c).transpose(0, 1).reshape(*xz.shape[:-1], 2 * c)
+
+
+def channel_route(kind: str, p: Params, x: DTensor, cache: Optional[Dict] = None) -> bool:
+    """Whether a recurrent mixer on a mesh runs on channel shards: the mesh
+    has a "model" dim that leaves x's batch rows alone and divides the
+    channels (and, for RG-LRU, its gate blocks), and every cache leaf lies
+    on x's batch rows and this rank's channels."""
+    mesh = x.device_mesh
+    if "model" not in mesh.mesh_dim_names:
+        return False
+    mdim = mesh.mesh_dim_names.index("model")
+    m = mesh.size(mdim)
+    if isinstance(x.placements[mdim], Shard) and x.placements[mdim].dim == 0:
+        return False
+    if kind == "mamba":
+        ok = (p["w_in"].shape[1] // 2) % m == 0
+    else:
+        ok = p["w_x"].shape[1] % m == 0 and p["w_r"].shape[0] % m == 0
+    if ok and cache is not None:
+        rows = _rows(x)
+        for k, c in cache.items():
+            want = list(rows)
+            want[mdim] = Shard(_CACHE_CHANNEL_DIM[k])
+            if any(a != b for a, b, n in zip(c.placements, want, mesh.shape) if n > 1):
+                return False
+    return ok
+
+
+def _rows(x: DTensor) -> Tuple[Any, ...]:
+    """x's placements on its batch rows only (Shard(0) kept, else replicated)."""
+    return tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in x.placements)
+
+
+def _mixer_mesh(kind: str, p: Params, x: DTensor, cfg: ModelConfig, mode: str,
                 cache: Optional[Dict]):
-    """A recurrent mixer on a mesh, data-parallel only: each rank runs
-    `apply` (the plain code and kernels) on its batch rows with the weights
+    """A recurrent mixer on a mesh.  Where ``channel_route`` holds, on
+    channel shards over "model", as GSPMD partitions the JAX package's
+    mixers by their weights' specs: each rank runs the mixer's code on its
+    batch rows and its channels (the in-projections column-parallel, the
+    conv, gates and scan on the shard, the caches' shards written in place,
+    ``w_out`` row-parallel), Mamba's ``x_proj`` partial sums summed over
+    "model", and the output's partial sums reduced to x's rows.  Otherwise
+    data-parallel (``_mixer_rows``)."""
+    if not channel_route(kind, p, x, cache):
+        return _mixer_rows(kind, p, x, cfg, mode, cache)
+    mesh = x.device_mesh
+    mdim = mesh.mesh_dim_names.index("model")
+    m = mesh.size(mdim)
+    rows = _rows(x)
+    xr = spmd.to_placements(x, rows)
+    split = sorted(set(spmd.split_dims(xr)) | ({mdim} if m > 1 else set()))
+    pl = {}
+    for k, w in p.items():
+        d = _CHANNEL_DIM[kind][k]
+        want = tuple(Shard(d) if i == mdim and d is not None and m > 1 else Replicate()
+                     for i in range(mesh.ndim))
+        pl[k] = spmd.local_part(spmd.to_placements(w, want), split)
+    cl = None if cache is None else {k: c.to_local() for k, c in cache.items()}
+    h = rmsnorm(spmd.local_part(xr, split), pl["norm"], cfg.norm_eps)
+    if kind == "mamba":
+        y = _mamba_mix(pl, h, cfg, mode, cl, spmd.ModelAxis(mesh))
+    else:
+        y = _rglru_mix(pl, h, cfg, mode, cl)
+    part = tuple(Partial() if i == mdim and m > 1 else q for i, q in enumerate(rows))
+    y = spmd.to_placements(spmd.from_shards(y, mesh, part, x.shape), rows)
+    return xr + y, (None if mode == "train" else cache)
+
+
+def _mixer_rows(kind: str, p: Params, x: DTensor, cfg: ModelConfig, mode: str,
+                cache: Optional[Dict]):
+    """A recurrent mixer on a mesh, data-parallel only: each rank runs the
+    plain mixer (its code and kernels) on its batch rows with the weights
     gathered whole, so the ranks along every other mesh dim repeat the same
     work.  The cache leaves (placed by name, channels over "model") are
-    gathered the same way for the step and each rank's shard written back."""
+    gathered the same way for the step and each rank's shard written back.
+    The route of a mixer whose channels "model" does not divide."""
+    apply = mamba_apply if kind == "mamba" else rglru_apply
     mesh = x.device_mesh
-    rows = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
-                 for q in x.placements)
+    rows = _rows(x)
     xr = x if tuple(x.placements) == rows else x.redistribute(mesh, rows)
     split = spmd.split_dims(xr)
     whole = (Replicate(),) * mesh.ndim
@@ -551,17 +659,32 @@ def mamba_apply(
     differentiable: ``ops.mamba_scan`` takes the forward and reverse-scan
     kernels on the card, their plain versions on the CPU."""
     if isinstance(x, DTensor):
-        return _mixer_mesh(mamba_apply, p, x, cfg, mode, cache)
+        return _mixer_mesh("mamba", p, x, cfg, mode, cache)
+    y = _mamba_mix(p, rmsnorm(x, p["norm"], cfg.norm_eps), cfg, mode, cache)
+    return x + y, (None if mode == "train" else cache)
+
+
+def _mamba_mix(p: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
+               cache: Optional[Dict], chan: Optional[spmd.ModelAxis] = None) -> torch.Tensor:
+    """The Mamba branch of the normed input `h`, up to its ``w_out``
+    product, writing `cache` in prefill and decode.  With `chan` (a mesh's
+    model dim) the weights are a rank's channel shards: ``w_in``'s columns
+    come back as this rank's x and z channels (``_regroup``), ``x_proj``'s
+    partial sums are summed over the ranks (``chan.sum``), and the output is
+    the rank's partial sum."""
     N = cfg.ssm.d_state
     di = p["w_in"].shape[1] // 2
     dtr = p["w_dt"].shape[0]
-    h = rmsnorm(x, p["norm"], cfg.norm_eps)
     xz = h @ p["w_in"]
+    if chan is not None:
+        xz = _regroup(xz, chan)
     xs, z = xz[..., :di], xz[..., di:]
     conv_state = cache["conv"] if (cache is not None and mode == "decode") else None
     xc, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
     xc = F.silu(xc + p["conv_b"][None, None, :])
     proj = xc @ p["w_xproj"]
+    if chan is not None:
+        proj = chan.sum(proj)
     dt_in, Bm, Cm = proj[..., :dtr], proj[..., dtr : dtr + N], proj[..., dtr + N :]
     delta = _softplus((dt_in @ p["w_dt"]).float() + p["b_dt"][None, None, :])
     A = -torch.exp(p["A_log"])
@@ -577,17 +700,17 @@ def mamba_apply(
         y, hT = ops.mamba_scan(
             xc, delta, A, Bm.contiguous(), Cm.contiguous(), p["D"], None, impl=cfg.attn_impl,
             scan_dtype=torch.bfloat16 if cfg.scan_bf16 else None)
-    y = y.to(x.dtype) * F.silu(z)
+    y = y.to(h.dtype) * F.silu(z)
     y = y @ p["w_out"]
     if mode == "train":
-        return x + y, None
+        return y
     if cache is None:
         raise ValueError("prefill needs the cache to fill")
     if mode == "prefill":
         new_conv = _left_pad_tail(xs, p["conv_w"].shape[0] - 1)
     cache["h"].copy_(hT)
     cache["conv"].copy_(new_conv)
-    return x + y, cache
+    return y
 
 
 def mamba_cache_shape(cfg: ModelConfig, batch: int):

@@ -171,12 +171,7 @@ def _index(tree, r: int):
         views = getattr(tree, "_layer_views", None)
         if views is not None and r in views:
             return views[r]
-        if any(isinstance(p, Shard) and p.dim == 0 for p in tree.placements):
-            raise ValueError("a stacked tensor sharded on its layers axis")
-        pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in tree.placements]
-        local = tree.to_local()[r]
-        view = DTensor.from_local(local, tree.device_mesh, pl, run_check=False,
-                                  shape=tree.shape[1:], stride=tree.stride()[1:])
+        view = _layer_of(tree, tree.to_local()[r])
         if not tree.requires_grad:
             # kept on the stack while it lives, so serving pays DTensor's
             # from_local (host time) once a layer, not once a layer a step
@@ -185,6 +180,74 @@ def _index(tree, r: int):
             views[r] = view
         return view
     return tree[r]
+
+
+def _layer_of(stack: DTensor, local: torch.Tensor) -> DTensor:
+    """A layer of a stacked DTensor from `local`, the slice of its shard (its
+    layers axis is replicated): the stack's placements less that axis."""
+    if any(isinstance(p, Shard) and p.dim == 0 for p in stack.placements):
+        raise ValueError("a stacked tensor sharded on its layers axis")
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in stack.placements]
+    return DTensor.from_local(local, stack.device_mesh, pl, run_check=False,
+                              shape=stack.shape[1:], stride=stack.stride()[1:])
+
+
+class _StackGrad:
+    """The gradient of one stacked tensor, written a layer's slot at a time
+    into one buffer as each layer's gradient arrives (``_LayerSlot``)."""
+
+    def __init__(self, stack: torch.Tensor):
+        self.shape, self.dtype, self.device = stack.shape, stack.dtype, stack.device
+        self.left, self.buf = stack.shape[0], None
+
+    def put(self, r: int, g: torch.Tensor) -> Optional[torch.Tensor]:
+        """Writes layer `r`'s gradient into its slot; returns the whole
+        buffer with the last layer's, None before it.  ``g + 0.0`` turns a
+        -0.0 into +0.0: slicing by ``t[r]`` summed every layer's gradient,
+        zero outside its slot, into the stack's, so no -0.0 survived it, and
+        the bits stay the ones that route gave."""
+        if self.buf is None:
+            self.buf = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        torch.add(g, 0.0, out=self.buf[r])
+        self.left -= 1
+        if self.left:
+            return None
+        buf, self.buf, self.left = self.buf, None, self.shape[0]
+        return buf
+
+
+class _LayerSlot(torch.autograd.Function):
+    """``stack[r]`` (a view) whose backward writes the slice's gradient into
+    slot `r` of the stack's gradient (``_StackGrad``) instead of a zero
+    tensor of the whole stack's size: a group of depth L writes its
+    gradient once, where indexing wrote L whole-stack tensors and summed
+    them."""
+
+    @staticmethod
+    def forward(ctx, stack, r, grad):
+        ctx.r, ctx.grad = r, grad
+        return stack[r]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grad.put(ctx.r, g), None, None
+
+
+def _layers(tree, n: int) -> List[Any]:
+    """The `n` per-layer slices of a stacked group, taken once for a forward
+    that records a gradient.  A tensor that needs one is sliced by
+    ``_LayerSlot``; a DTensor on its shard (its placements kept), the
+    gradient going back through one ``to_local``.  Others take ``_index``'s
+    views."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(n)]
+    if not tree.requires_grad:
+        return [_index(tree, r) for r in range(n)]
+    if isinstance(tree, DTensor):
+        return [_layer_of(tree, t) for t in _layers(tree.to_local(), n)]
+    grad = _StackGrad(tree)
+    return [_LayerSlot.apply(tree, r, grad) for r in range(n)]
 
 
 class DecoderLM:
@@ -255,14 +318,18 @@ class DecoderLM:
     def _run_blocks(self, params, x, mode, caches, pos, rules=None, mesh=None):
         """caches: one stacked cache per group, filled (prefill) or read and
         updated (decode) in place; None in train mode.  A train-mode forward
-        that records a gradient runs each superblock under ``cfg.remat``
-        (``remat.run``), as the JAX package's ``_remat`` wraps it."""
-        remat_on = self.cfg.remat != "none" and mode == "train" and torch.is_grad_enabled()
+        that records a gradient takes each group's layers once (``_layers``,
+        outside remat, so the recomputation does not slice again) and runs
+        each superblock under ``cfg.remat`` (``remat.run``), as the JAX
+        package's ``_remat`` wraps it."""
+        grad_on = mode == "train" and torch.is_grad_enabled()
+        remat_on = self.cfg.remat != "none" and grad_on
         for gi, g in enumerate(self.groups):
             gp = params["blocks"][gi]
             gcache = caches[gi] if caches is not None else None
+            per_layer = _layers(gp, g.repeats) if grad_on and g.repeats > 1 else None
             for r in range(g.repeats):
-                gp_r = gp if g.repeats == 1 else _index(gp, r)
+                gp_r = gp if g.repeats == 1 else per_layer[r] if per_layer else _index(gp, r)
                 c_r = None
                 if gcache is not None:
                     c_r = gcache if g.repeats == 1 else _index(gcache, r)

@@ -15,7 +15,7 @@ One param layout, three ways to run it, as in the JAX package:
 a mesh or without a ``"model"`` mesh dim, ``tp_sort`` when the experts do
 not divide the model dim.  ``_ep_a2a_local`` and ``_tp_sort_local`` are
 the per-rank bodies of the reference's ``shard_map``s, over the model
-dim's process group: the token exchange is ``all_to_all_single`` of
+dim's process group (``spmd.ModelAxis``): the token exchange is ``all_to_all_single`` of
 ``torch.distributed.nn.functional`` (its gradient is the exchange back),
 and the gather of the routed slices and the psum of the width slices are
 DTensor redistributions (Shard -> Replicate, Partial -> Replicate), whose
@@ -49,7 +49,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from . import spmd
 from .config import ModelConfig
@@ -138,52 +138,6 @@ def _ranks_within_expert(fe: torch.Tensor, num_experts: int):
     return order, se, rank
 
 
-class _ModelAxis:
-    """The model mesh dim as the bodies see it: its size, this rank's index
-    and its collectives.  ``_ModelAxis(None)`` is a single device (size 1,
-    index 0), where every collective is the identity."""
-
-    def __init__(self, mesh=None, token_placements=None):
-        self.mesh = mesh
-        if mesh is None:
-            self.size, self.index, self.dim = 1, 0, None
-            return
-        self.dim = mesh.mesh_dim_names.index("model")
-        self.size = mesh.size(self.dim)
-        self.index = mesh.get_coordinate()[self.dim]
-        self.group = mesh.get_group(self.dim)
-        self.tokens = token_placements  # the local token block's placements
-
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        """x [size, ...]: row j goes to rank j; returns what each rank sent
-        this one, by sender."""
-        if self.size == 1:
-            return x
-        from torch.distributed.nn.functional import all_to_all_single
-
-        out = torch.empty_like(x)
-        return all_to_all_single(out, x.contiguous(), group=self.group)
-
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's x [t, d], concatenated in rank order."""
-        if self.size == 1:
-            return x
-        pl = list(self.tokens)
-        pl[self.dim] = Shard(0)
-        full = DTensor.from_local(x, self.mesh, pl, run_check=False)
-        pl[self.dim] = Replicate()
-        return full.redistribute(self.mesh, pl).to_local()
-
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
-        if self.size == 1:
-            return x
-        pl = [Replicate()] * self.mesh.ndim
-        pl[self.dim] = Partial()
-        full = DTensor.from_local(x, self.mesh, pl, run_check=False)
-        pl[self.dim] = Replicate()
-        return full.redistribute(self.mesh, pl).to_local()
-
-
 def _dispatch(xt: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig):
     """Routes `xt` into per-expert capacity slots: (buffer [E * cap, d], cap,
     and each assignment's slot, token and weight, 0 where it was dropped,
@@ -213,10 +167,10 @@ def _combine(ret: torch.Tensor, slot, tok, weight, t: int, dtype) -> torch.Tenso
 
 
 def _ep_a2a_local(xt, w_router, w_gate, w_up, w_down, *, cfg: ModelConfig,
-                  axis: Optional[_ModelAxis] = None):
+                  axis: Optional[spmd.ModelAxis] = None):
     """One rank's body of expert parallelism: xt [t, d] local tokens
     (replicated over the model axis), the experts sharded over it."""
-    ax = axis or _ModelAxis()
+    ax = axis or spmd.ModelAxis()
     E = cfg.moe.num_experts
     e_loc = E // ax.size
     t = xt.shape[0]
@@ -226,10 +180,6 @@ def _ep_a2a_local(xt, w_router, w_gate, w_up, w_down, *, cfg: ModelConfig,
     slice_tokens = t >= ax.size and t % ax.size == 0
     tj = t // ax.size if slice_tokens else t
     xj = xt[ax.index * tj:(ax.index + 1) * tj] if slice_tokens else xt
-    if not slice_tokens and ax.size > 1 and torch.is_grad_enabled() and xt.requires_grad:
-        raise NotImplementedError("ep_a2a: replicated routing (local tokens not a multiple of "
-                                  "the model axis) computes every token on every rank; its "
-                                  "gradient is not defined here")
     send, cap, slot, tok, weight = _dispatch(xj, w_router, cfg)
     send = send.reshape(ax.size, e_loc * cap, xt.shape[1])
     recv = ax.all_to_all(send)  # [size, e_loc * cap, d]: each peer's slots for my experts
@@ -238,14 +188,23 @@ def _ep_a2a_local(xt, w_router, w_gate, w_up, w_down, *, cfg: ModelConfig,
     back = ye.reshape(e_loc, ax.size, cap, -1).transpose(0, 1).reshape(ax.size, e_loc * cap, -1)
     ret = ax.all_to_all(back).reshape(E * cap, -1)
     yj = _combine(ret, slot, tok, weight, tj, xt.dtype)
-    return ax.all_gather(yj) if slice_tokens else yj
+    if slice_tokens:
+        return ax.all_gather(yj)
+    if ax.size > 1 and yj.requires_grad:
+        # replicated routing: each rank's output holds every token, and its
+        # gradient is whole on every rank; one copy of each token carries
+        # it (token i's on rank i % size), so no expert, router or token
+        # gradient counts the ranks' copies more than once
+        mine = (torch.arange(t, device=yj.device) % ax.size == ax.index)[:, None]
+        yj = torch.where(mine, yj, yj.detach())
+    return yj
 
 
 def _tp_sort_local(xt, w_router, w_gate, w_up, w_down, *, cfg: ModelConfig,
-                   axis: Optional[_ModelAxis] = None):
+                   axis: Optional[spmd.ModelAxis] = None):
     """One rank's body of TP-MoE: every expert's width sharded over the
     model axis (w_gate, w_up [E, d, f / size], w_down [E, f / size, d])."""
-    ax = axis or _ModelAxis()
+    ax = axis or spmd.ModelAxis()
     E = cfg.moe.num_experts
     buf, cap, slot, tok, weight = _dispatch(xt, w_router, cfg)
     ye = ax.psum(_expert_ffn(buf.reshape(E, cap, -1), w_gate, w_up, w_down))
@@ -292,7 +251,7 @@ def _moe_mesh(p: Params, xt: DTensor, cfg: ModelConfig, mesh, impl: str) -> DTen
         y = _dense_moe(dict(zip(names, wl)), xl, cfg)
     else:
         body = _ep_a2a_local if impl == "ep_a2a" else _tp_sort_local
-        y = body(xl, *wl, cfg=cfg, axis=_ModelAxis(mesh, tok_pl))
+        y = body(xl, *wl, cfg=cfg, axis=spmd.ModelAxis(mesh, tok_pl))
     return DTensor.from_local(y, mesh, tok_pl, run_check=False, shape=xt.shape,
                               stride=xt.stride())
 

@@ -201,3 +201,67 @@ def linear(x: DTensor, w: DTensor, want=None) -> DTensor:
     xl, wl = local_part(xr, split), local_part(wr, split)
     yl = (xl.reshape(-1, xl.shape[-1]) @ wl).view(*xl.shape[:-1], wl.shape[-1])
     return from_shards(yl, mesh, out, tuple(x.shape[:-1]) + (w.shape[1],))
+
+
+class ModelAxis:
+    """The "model" mesh dim as a rank's body sees it (the MoE bodies, the
+    channel-sharded mixers): its size, this rank's index and its
+    collectives.  ``ModelAxis()`` is a single device (size 1, index 0),
+    where every collective is the identity.  The exchanges and ``sum`` are
+    ``torch.distributed.nn.functional``'s, whose gradients are the exchange
+    back and the sum of the ranks' gradients; ``all_gather`` and ``psum``
+    are DTensor redistributions, whose gradients follow the model's
+    convention that a replicated activation's gradient is whole on every
+    rank."""
+
+    def __init__(self, mesh=None, token_placements=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.size, self.index, self.dim = 1, 0, None
+            return
+        self.dim = mesh.mesh_dim_names.index("model")
+        self.size = mesh.size(self.dim)
+        self.index = mesh.get_coordinate()[self.dim]
+        self.group = mesh.get_group(self.dim)
+        self.tokens = token_placements  # the local token block's placements
+
+    def all_to_all(self, x: torch.Tensor, out_rows=None, in_rows=None) -> torch.Tensor:
+        """Without row splits, x [size, ...]: row j goes to rank j; returns
+        what each rank sent this one, by sender.  With them, x [n, ...]
+        sends in_rows[j] rows to rank j and receives out_rows[j] from it."""
+        if self.size == 1:
+            return x
+        from torch.distributed.nn.functional import all_to_all_single
+
+        out = (torch.empty_like(x) if out_rows is None
+               else x.new_empty((sum(out_rows),) + tuple(x.shape[1:])))
+        return all_to_all_single(out, x.contiguous(), out_rows, in_rows, group=self.group)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's `t`, where each rank reads the sum for
+        its own part of the work: its gradient is the sum of the ranks'."""
+        if self.size == 1:
+            return t
+        from torch.distributed.nn.functional import all_reduce
+
+        return all_reduce(t, group=self.group)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's x [t, d], concatenated in rank order."""
+        if self.size == 1:
+            return x
+        pl = list(self.tokens)
+        pl[self.dim] = Shard(0)
+        full = DTensor.from_local(x, self.mesh, pl, run_check=False)
+        pl[self.dim] = Replicate()
+        return full.redistribute(self.mesh, pl).to_local()
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's x, read alike by every rank."""
+        if self.size == 1:
+            return x
+        pl = [Replicate()] * self.mesh.ndim
+        pl[self.dim] = Partial()
+        full = DTensor.from_local(x, self.mesh, pl, run_check=False)
+        pl[self.dim] = Replicate()
+        return full.redistribute(self.mesh, pl).to_local()

@@ -35,6 +35,9 @@ from repro_torch.tree import flatten_named  # noqa: E402
 from torch.distributed.tensor import DTensor  # noqa: E402
 
 SEQ_CFG = dict(n_heads=3, n_kv_heads=3, head_dim=32, d_model=96, d_ff=128, dtype="float32")
+# falcon-mamba-7b's smoke config at d_model 90 (with the test's ssm expand of 3:
+# 270 channels, which a model dim of 4 does not divide)
+ODD_FM = dict(d_model=90)
 
 
 def _np(t):
@@ -207,6 +210,48 @@ def _bitwise_one_rank(mesh, inp, out):
     out["one/serve"] = bool(np.array_equal(want, got))
 
 
+def _bitwise_one_rank_recurrent(mesh, out):
+    """On a 1 x 1 mesh, the recurrent mixers' channel route: the step-0
+    gradients, two Adafactor steps and greedy serving of falcon-mamba-7b and
+    recurrentgemma-9b (smoke, bf16) against the mesh-less path."""
+    from repro_torch.serving.engine import ServeConfig, ServeEngine
+    from repro_torch.training import init_train_state
+
+    for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
+        cfg = get_smoke_config(arch)
+        model = DecoderLM(cfg)
+        tcfg = TrainConfig(opt=OptConfig(kind="adafactor", lr=1e-3, momentum_dtype="bfloat16"))
+        rules = rules_for(cfg, mesh, kind="train")
+        batch = model.sample_inputs(2, 32)
+        s0 = init_train_state(model, torch.Generator().manual_seed(0), tcfg)
+        s1 = place(init_train_state(model, torch.Generator().manual_seed(0), tcfg),
+                   state_shardings(model, tcfg, rules, mesh), mesh)
+        b1 = _batch_on(mesh, rules, {k: v.numpy() for k, v in batch.items()})
+        rec = _Recorder()
+        try:
+            _, g0 = _loss_and_grads(model, s0["params"], batch)
+            _, g1 = _loss_and_grads(model, s1["params"], b1, rules, mesh)
+            same = sorted(g0) == sorted(g1) and all(np.array_equal(g0[n], g1[n]) for n in g0)
+            f0, f1 = make_train_step(model, tcfg), make_train_step(model, tcfg, rules, mesh)
+            for _ in range(2):
+                s0, m0 = f0(s0, batch)
+                s1, m1 = f1(s1, b1)
+                same &= all(torch.equal(m0[k], m1[k]) for k in m0)
+            a, b = dict(flatten_named(s0)), dict(flatten_named(s1))
+            same &= all(torch.equal(a[n], b[n].to_local() if isinstance(b[n], DTensor) else b[n])
+                        for n in a)
+            params = model.init(torch.Generator().manual_seed(1))
+            prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+            scfg = ServeConfig(batch_slots=2, max_new_tokens=9)
+            want, _ = ServeEngine(model, params, scfg, device="cpu").generate(prompts)
+            got, _ = ServeEngine(model, params, scfg, rules_for(cfg, mesh, kind="decode"),
+                                 mesh).generate(prompts)
+            same &= bool(np.array_equal(want, got))
+        finally:
+            rec.close()
+        out[f"one_rec/{arch}"] = bool(same) and rec.rows == 0
+
+
 def _pipeline(mesh, inp, out):
     from repro_torch.training.pipeline import pipeline_apply
 
@@ -220,14 +265,201 @@ def _pipeline(mesh, inp, out):
                                       axis="stage", n_micro=4).numpy()
 
 
+
+# ------------------------------------------------- gradients on the 2 x 4 world
+def _loss_and_grads(model, params, batch, rules=None, mesh=None):
+    """The loss and every parameter's gradient (whole tensors), as
+    train_step's value_and_grad takes them."""
+    leaves = dict(flatten_named(params))
+    live = {n: p.detach().requires_grad_(True) for n, p in leaves.items()}
+    from repro_torch.tree import tree_map_named
+
+    loss = model.loss(tree_map_named(lambda n, _: live[n], params), batch, rules, mesh)
+    grads = torch.autograd.grad(loss, list(live.values()))
+    return float(_np(loss)), {n: _np(g) for n, g in zip(live, grads)}
+
+
+class _Recorder:
+    """What reached the scans (their first input's shape and the final
+    state's, once a scan) and how many mixers took the data-parallel route
+    (``layers._mixer_rows``), while it is open."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.seen, self.rows = layers, {}, 0
+        self.saved = {n: getattr(layers.ops, n) for n in ("mamba_scan", "rglru_scan")}
+        self.saved_rows = layers._mixer_rows
+        for name, fn in self.saved.items():
+            setattr(layers.ops, name, self._scan(name, fn))
+        layers._mixer_rows = self._rows
+
+    def _scan(self, name, fn):
+        def run(*args, **kwargs):
+            y, hT = fn(*args, **kwargs)
+            self.seen.setdefault(name, [list(args[0].shape), list(hT.shape)])
+            return y, hT
+
+        return run
+
+    def _rows(self, *args, **kwargs):
+        self.rows += 1
+        return self.saved_rows(*args, **kwargs)
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.layers.ops, name, fn)
+        self.layers._mixer_rows = self.saved_rows
+
+
+def _mixer_flops(cfg, mesh, rules):
+    """A mixer's FLOPs (CostMode) for a forward and backward of layer 0 on
+    this rank, with and without the mesh, on the same seeded input."""
+    from repro_torch.launch.analysis import CostMode
+    from repro_torch.models import layers
+    from repro_torch.models.params import init_params, make_shardings
+
+    kind = cfg.block_pattern[0][0]
+    specs = layers.mamba_specs(cfg) if kind == "mamba" else layers.rglru_specs(cfg)
+    apply = layers.mamba_apply if kind == "mamba" else layers.rglru_apply
+    p = init_params(specs, torch.Generator().manual_seed(4))
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(5))
+    flops = []
+    for on_mesh in (False, True):
+        pp = place(p, make_shardings(specs, mesh, rules), mesh) if on_mesh else p
+        xx = _batch_on(mesh, rules, {"x": x.numpy()})["x"] if on_mesh else x
+        live = {k: v.detach().requires_grad_(True) for k, v in pp.items()}
+        xx = xx.detach().requires_grad_(True)
+        with CostMode() as mode:
+            y, _ = apply(live, xx, cfg, "train")
+            y = y.to_local() if on_mesh else y  # each rank's rows
+            torch.autograd.grad(y.sum(), [xx] + list(live.values()))
+        flops.append(mode.flops)
+    return flops
+
+
+def _route_b(mesh, inp, out, tag, arch, over):
+    """A recurrent model (2 layers) on the 2 x 4 mesh: the loss and every
+    gradient, the local shapes of the weights, the scans' inputs and the
+    caches, the routes the mixers took, the mixer's FLOPs and greedy
+    serving, beside the port without a mesh."""
+    from repro_torch.models.params import make_shardings
+    from repro_torch.serving.engine import ServeConfig, ServeEngine
+
+    cfg = get_smoke_config(arch, dtype="float32", n_layers=2, **over)
+    if f"{tag}/ssm_expand" in inp:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, expand=int(inp[f"{tag}/ssm_expand"])))
+    model = DecoderLM(cfg)
+    rules = rules_for(cfg, mesh, kind="train")
+    batch = {"tokens": inp[f"{tag}/tokens"], "labels": inp[f"{tag}/labels"]}
+    loss0, g0 = _loss_and_grads(model, _params(inp, f"{tag}/p/", model),
+                                {k: torch.from_numpy(v) for k, v in batch.items()})
+    placed = place(_params(inp, f"{tag}/p/", model), _shardings(model, mesh, rules), mesh)
+    rec = _Recorder()
+    try:
+        loss1, g1 = _loss_and_grads(model, placed, _batch_on(mesh, rules, batch), rules, mesh)
+        out[f"{tag}/train_seen"], out[f"{tag}/train_rows"] = dict(rec.seen), rec.rows
+        rec.seen, rec.rows = {}, 0
+        drules = rules_for(cfg, mesh, kind="decode")
+        params = _params(inp, f"{tag}/p/", model)
+        prompts = inp[f"{tag}/tokens"][:, :12]
+        scfg = ServeConfig(batch_slots=4, max_new_tokens=9)
+        want, _ = ServeEngine(model, params, scfg, device="cpu").generate(prompts)
+        rec.seen = {}
+        eng = ServeEngine(model, params, scfg, drules, mesh)
+        got, _ = eng.generate(prompts)
+        out[f"{tag}/serve_seen"], out[f"{tag}/serve_rows"] = dict(rec.seen), rec.rows
+        with torch.inference_mode():
+            logits, cache = model.prefill(eng.params, {"tokens": eng._tokens(
+                torch.from_numpy(prompts.astype(np.int64)))}, drules, mesh)
+        out[f"{tag}/prefill"] = _np(logits)
+        out[f"{tag}/cache_local"] = {n: list(t.to_local().shape)
+                                     for n, t in flatten_named(cache["groups"])}
+    finally:
+        rec.close()
+    out[f"{tag}/loss"] = [loss0, loss1]
+    out[f"{tag}/grads0"], out[f"{tag}/grads"] = g0, g1
+    out[f"{tag}/local"] = {n: list(t.to_local().shape) for n, t in flatten_named(placed)}
+    out[f"{tag}/tokens"] = [want, got]
+    out[f"{tag}/flops"] = _mixer_flops(cfg, mesh, rules)
+
+
+def _ep_grads(mesh, inp, out):
+    """ep_a2a's gradient with 3 local tokens over a model dim of 4 (the
+    replicated routing), and dense's without a mesh, of sum(y * r)."""
+    from torch.distributed.tensor import DTensor as DT
+
+    cfg = get_smoke_config("kimi-k2-1t-a32b", dtype="float32")
+    m = dataclasses.replace(cfg.moe, capacity_factor=8.0)
+    cfg_a2a = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="ep_a2a"))
+    cfg_dense = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="dense"))
+    named = {k[len("epg/p/"):]: torch.from_numpy(v) for k, v in inp.items()
+             if k.startswith("epg/p/")}
+    specs = moe.moe_specs(cfg_a2a)
+    rules = rules_for(cfg_a2a, mesh, kind="train")
+    x, r = torch.from_numpy(inp["epg/x"]), torch.from_numpy(inp["epg/r"])
+    for path in ("dense", "ep_a2a"):
+        if path == "dense":
+            p = {n: t.clone().requires_grad_(True) for n, t in named.items()}
+            xx = x.clone().requires_grad_(True)
+            loss = (moe.moe_apply(p, xx, cfg_dense) * r).sum()
+        else:
+            p = {n: shard(t, placements_of(t.shape, specs[n].logical_axes, mesh, rules),
+                          mesh).requires_grad_(True) for n, t in named.items()}
+            on = _batch_on(mesh, rules, {"x": inp["epg/x"], "r": inp["epg/r"]})
+            xx = on["x"].requires_grad_(True)
+            out["epg/impl"] = moe._impl(cfg_a2a, mesh)
+            out["epg/local_tokens"] = xx.to_local().shape[0] * xx.shape[1]
+            loss = (moe.moe_apply(p, xx, cfg_a2a, rules, mesh) * on["r"]).sum()
+            loss = loss.full_tensor() if isinstance(loss, DT) else loss
+        grads = torch.autograd.grad(loss, [xx] + list(p.values()))
+        out[f"epg/{path}"] = {n: _np(g) for n, g in zip(["x"] + list(p), grads)}
+
+
+def _pipeline_grads(mesh, inp, out):
+    """pipeline_apply over the 4 stages of a ("data", "stage") mesh: the
+    output and the gradients of sum(y * r) for the stage weights (plain and
+    as a DTensor sharded on the stage axis) and for x."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.training.pipeline import pipeline_apply
+
+    w, x, r = (torch.from_numpy(inp[f"pipe/{k}"]) for k in ("w", "x", "r"))
+    for form in ("plain", "dtensor"):
+        wp = (w.clone() if form == "plain" else
+              shard(w, [Replicate(), Shard(0)], mesh)).requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        y = pipeline_apply(lambda p, h: torch.tanh(h @ p), wp, xx, mesh, axis="stage", n_micro=4)
+        gw, gx = torch.autograd.grad((y * r).sum(), [wp, xx])
+        if form == "plain":  # each rank's gradient holds its own stage's slice
+            mine = gw[mesh.get_coordinate()[1]].contiguous()
+            parts = [torch.empty_like(mine) for _ in range(4)]
+            dist.all_gather(parts, mine, group=mesh.get_group(1))
+            gw = torch.stack(parts)
+        out[f"pipe/{form}"] = {"y": _np(y), "w": _np(gw), "x": _np(gx)}
+
+
+def _grads8(inp, out):
+    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+    _route_b(mesh, inp, out, "fm", "falcon-mamba-7b", {})
+    _route_b(mesh, inp, out, "rg", "recurrentgemma-9b", {})
+    _route_b(mesh, inp, out, "fm_odd", "falcon-mamba-7b", ODD_FM)
+    _ep_grads(mesh, inp, out)
+    _pipeline_grads(make_mesh((2, 4), ("data", "stage"), "cpu"), inp, out)
+
+
 def main(scenario, rank, world, directory):
     dist.init_process_group("gloo", init_method=f"file://{directory}/{scenario}.store",
                             rank=rank, world_size=world)
     try:
-        inp = dict(np.load(f"{directory}/{scenario}.in.npz")) if scenario != "mesh1" else {}
+        inp = dict(np.load(f"{directory}/{scenario}.in.npz")) if scenario not in (
+            "mesh1", "mesh1rec") else {}
         out = {}
         if scenario == "mesh1":
             _bitwise_one_rank(make_mesh((1, 1), ("data", "model"), "cpu"), inp, out)
+        elif scenario == "mesh1rec":
+            _bitwise_one_rank_recurrent(make_mesh((1, 1), ("data", "model"), "cpu"), out)
         elif scenario == "mesh8":
             mesh = make_mesh((2, 4), ("data", "model"), "cpu")
             _train(mesh, inp, out, "adamw")
@@ -236,6 +468,8 @@ def main(scenario, rank, world, directory):
             _moe(mesh, inp, out, "kimi-k2-1t-a32b", "ep_a2a", "ep")
             _store(mesh, inp, out, directory)
             _recurrent(mesh, inp, out)
+        elif scenario == "grads8":
+            _grads8(inp, out)
         elif scenario == "pipe4":
             _pipeline(make_mesh((4,), ("stage",), "cpu"), inp, out)
         elif scenario == "mesh6":

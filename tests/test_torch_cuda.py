@@ -1076,3 +1076,120 @@ def test_two_blade_cluster_on_the_card_equals_the_cpu_cluster(cuda):
     assert [b[:3] for b in on_card[0]] == [b[:3] for b in on_cpu[0]]
     assert on_card[1:] == on_cpu[1:]
     assert on_card[3] == 1 and on_card[-1] == list(range(260)) + list(range(501, 541))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "llama3.2-3b"])
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_stacked_gradients_are_the_indexed_routes_bits_on_the_card(cuda, monkeypatch, arch,
+                                                                  remat):
+    """A stacked group's gradient written a layer's slot at a time
+    (models.model._layers) against indexing the stack once a layer (bf16
+    smoke widths at 4 layers, deterministic mode): the same bits."""
+    from repro_torch.models import model as model_mod
+
+    cfg = get_smoke_config(arch, n_layers=4, remat=remat)
+    model = DecoderLM(cfg)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticPipeline(
+        DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64)).batch_at(0).items()}
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    outs = []
+    for old in (False, True):
+        if old:
+            monkeypatch.setattr(model_mod, "_layers",
+                                lambda tree, n: [model_mod._index(tree, r) for r in range(n)])
+        with deterministic_cuda(), torch.enable_grad():
+            live = {n: p.detach().requires_grad_(True) for n, p in flatten_named(params)}
+            loss = model.loss(tree_map_named(lambda n, _: live[n], params), batch)
+            grads = torch.autograd.grad(loss, list(live.values()))
+        outs.append([t.reshape(-1).view(torch.uint8) for t in [loss.detach(), *grads]])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_channel_route_on_a_one_by_one_card_mesh_is_bitwise(cuda, tmp_path, arch):
+    """The recurrent mixers' channel route (layers._mixer_mesh) on a 1 x 1
+    mesh of the card (a one-rank NCCL group): step-0 gradients, two
+    Adafactor steps and every greedy decode step's logits of the bf16 smoke
+    model give the mesh-less path's bits, with the same scan launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, rules_for
+    from repro_torch.models import layers
+    from repro_torch.models.params import place, placements_of, shard
+    from repro_torch.serving.engine import _whole
+    from repro_torch.training.train_step import state_shardings
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_smoke_config(arch)
+        model = DecoderLM(cfg)
+        tcfg = TrainConfig(opt=OptConfig(kind="adafactor", lr=1e-3, momentum_dtype="bfloat16"))
+        rules = rules_for(cfg, mesh, kind="train")
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticPipeline(
+            DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64)).batch_at(0).items()}
+        toks = batch["tokens"][:, :16].long()
+        counters = [(ms, "launches"), (ms, "bwd_launches"), (rs, "launches"), (rs, "bwd_launches")]
+        runs = []
+        for on_mesh in (False, True):
+            before = [getattr(m, a) for m, a in counters]
+            state = init_train_state(model, torch.Generator(device=cuda).manual_seed(0), tcfg)
+            kw, b = {}, batch
+            if on_mesh:
+                state = place(state, state_shardings(model, tcfg, rules, mesh), mesh)
+                kw = dict(rules=rules, mesh=mesh)
+                b = {k: shard(v, placements_of(v.shape, ("act_batch",), mesh, rules), mesh)
+                     for k, v in batch.items()}
+            local = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
+            out = []
+            with deterministic_cuda(), torch.enable_grad():
+                live = {n: p.detach().requires_grad_(True)
+                        for n, p in flatten_named(state["params"])}
+                loss = model.loss(tree_map_named(lambda n, _: live[n], state["params"]), b, **kw)
+                out += [local(g) for g in torch.autograd.grad(loss, list(live.values()))]
+            step = make_train_step(model, tcfg, **kw)
+            with deterministic_cuda():
+                for _ in range(2):
+                    state, metrics = step(state, b)
+                    out += [local(metrics["loss"]), local(metrics["grad_norm"])]
+            out += [local(t) for _, t in flatten_named(state)]
+            drules = rules_for(cfg, mesh, kind="decode")
+            params = state["params"]
+            if on_mesh:
+                params = place(params, _shardings(model.param_specs(), mesh, drules), mesh)
+                t_in = shard(toks, placements_of(toks.shape, ("act_batch",), mesh, drules), mesh)
+            else:
+                t_in = toks
+            with torch.inference_mode():
+                logits, cache = model.prefill(params, {"tokens": t_in}, **(
+                    dict(rules=drules, mesh=mesh) if on_mesh else {}))
+                for _ in range(8):
+                    logits = _whole(logits)
+                    out.append(logits.clone())
+                    nxt = torch.argmax(logits, -1)
+                    if on_mesh:
+                        nxt = shard(nxt, placements_of(nxt.shape, ("act_batch",), mesh, drules),
+                                    mesh)
+                    logits, cache = model.decode_step(params, cache, nxt, **(
+                        dict(rules=drules, mesh=mesh) if on_mesh else {}))
+            runs.append(([t.reshape(-1).view(torch.uint8) for t in out],
+                         [getattr(m, a) - n for (m, a), n in zip(counters, before)]))
+        (a, ran_a), (b_, ran_b) = runs
+        assert len(a) == len(b_) and all(torch.equal(x, y) for x, y in zip(a, b_))
+        assert ran_a == ran_b and sum(ran_a) > 0
+        x = shard(torch.zeros((2, 4, cfg.d_model), device=cuda),
+                  placements_of((2, 4, cfg.d_model), ("act_batch",), mesh, rules), mesh)
+        kind = cfg.block_pattern[0][0]
+        specs = layers.mamba_specs(cfg) if kind == "mamba" else layers.rglru_specs(cfg)
+        p = place(init_params(specs, torch.Generator(device=cuda).manual_seed(1)),
+                  _shardings(specs, mesh, rules), mesh)
+        assert layers.channel_route(kind, p, x)
+    finally:
+        dist.destroy_process_group()
+
+
+def _shardings(specs, mesh, rules):
+    from repro_torch.models.params import make_shardings
+
+    return make_shardings(specs, mesh, rules)

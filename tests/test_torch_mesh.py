@@ -401,8 +401,10 @@ def test_version_from_a_2x4_trainer_restores_bitwise_without_a_mesh(inputs, mesh
 # ------------------------------------------------------------- recurrent
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
 def test_recurrent_mixers_train_and_serve_on_2x4(mesh8, arch):
-    """The recurrent mixers run data-parallel on a mesh: a train step's loss
-    and grad norm against the port without a mesh (the gradients' bound of
+    """The recurrent mixers run on their channel shards over "model" (the
+    smoke widths divide by 4; tests/test_torch_mesh_grads.py holds the
+    shards and the gradients to JAX): a train step's loss and grad norm
+    against the port without a mesh (the gradients' bound of
     tests/test_torch_training.py: recurrentgemma-9b's 3e-3 of scale), and
     the same greedy tokens."""
     loss0, loss1, g0, g1 = mesh8[f"rec/{arch}/train"]
