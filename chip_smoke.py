@@ -171,7 +171,15 @@ It prints one JSON object per line, one line per phase:
            span of 1e5 segments and a 64 MB arena with a mirror and 1e5
            runs, a third overlapping: kernel_ms the whole call (its host
            planning included), launch_ms the launch alone on a table
-           planned before (both CUDA events after the L2 flush)
+           planned before (both CUDA events after the L2 flush); and K2 at
+           the replay's shapes (APPLY_CASES: a put's 3 runs, a bptree
+           window's 190, a queue window's 2,003, 48 overlapping), each with
+           its route, call_ms and launch_ms (medians of 1,000 calls on the
+           host clock, each synchronised) beside the floor (an empty
+           kernel's launch, timed alike), a trace of 50 small-route calls
+           (a kernel a call, no host-to-device copy, no aten op, no host
+           plan), and
+           K2's calls by route in the nvm and cluster phases
   cluster  the cluster (src/repro_torch/cluster, faults, core/apps,
            obs/report.py): each step on a cluster on the card and on one on
            the CPU, in one process, every blade's arena and mirror digests,
@@ -2662,11 +2670,24 @@ NVM_DESIGN = {
                            "from the two aligned words around them by a funnel shift, bytes "
                            "past the segment masked; each lane's sums folded mod 2^32-1, then "
                            "the warp's (and the block's) reduced sums added",
-    "apply_runs": "the host merges the runs' intervals; a run alone in its interval copies "
-                  "its bytes as they are, the bytes of shared intervals are numbered "
-                  "compactly: pass 1 an atomicMax of the run index into an int32 owner a "
-                  "byte, pass 2 copies each byte from its owner to the arena and every "
-                  "mirror; a warp a run"}
+    "apply_runs": "two routes by the run table's size: a table of up to SMALL_WORDS int64 "
+                  "words (PARAM_BYTES of launch parameters) goes with the launch as a "
+                  "__grid_constant__ struct, one launch and no copy; a warp a run finds "
+                  "each 16-byte chunk's live bytes by walking the later runs in the "
+                  "parameter bank. A longer table is planned on the host (merged "
+                  "intervals; an atomicMax of the run index owns each shared byte), staged "
+                  "in a kept pinned buffer. Both copy 16-byte chunks aligned in the "
+                  "arena, funnel-shifted where the source is not, to the arena and every "
+                  "mirror from the same registers"}
+# K2 at the shapes the blade's replay gives it, each on a 64 MB arena and one
+# mirror whose last APPLY_SPAN bytes hold the log span; and its old timed case
+APPLY_SPAN = 16 << 20
+APPLY_CASES = {
+    "put": "3 runs of 8, 8 and 24 bytes, as a hashtable put",
+    "window": "190 runs of 8-240 bytes into distinct 256-byte nodes, as a bptree x rcb window",
+    "queue": "2003 runs of 8 or 16 bytes into distinct 64-byte nodes, as a queue x symb window",
+    "overlap": "48 runs of 1-240 bytes with whole, partial and nested overlaps, in shuffled "
+               "order"}
 
 
 def _nvm_fe(core, variant, cache_bytes):
@@ -2911,10 +2932,13 @@ def _nvm_table3_cell(torch, structure, variant, preload, n_ops):
     from repro_torch.obs import profile as obs_profile
 
     line = {"structure": structure, "variant": variant, "preload": preload, "ops": n_ops}
+    from repro_torch.kernels import nvm_log
+
     states = {}
     for dev in ("cuda", "cpu"):
         obs_profile.reset()
         obs_profile.enable()
+        before = dict(nvm_log.apply_launches_by_route)
         try:
             t0 = time.perf_counter()
             be, fe, obj, ns = _nvm_cell(dev, structure, variant, preload, n_ops)
@@ -2930,10 +2954,161 @@ def _nvm_table3_cell(torch, structure, variant, preload, n_ops):
         line[f"{key}_ms_per_op"] = wall * 1e3 / (preload + n_ops)
         if dev == "cuda":
             line.update(kops=n_ops / ns * 1e6, d2h=copies[0], h2d=copies[1],
-                        host_s={k: v["seconds"] for k, v in obs_profile.snapshot().items()})
+                        host_s={k: v["seconds"] for k, v in obs_profile.snapshot().items()},
+                        apply_by_route={r: nvm_log.apply_launches_by_route[r] - before[r]
+                                        for r in nvm_log.ROUTES})
         del be, fe, obj
     line["equal"] = states["cuda"] == states["cpu"]
     emit({"phase": "nvm", "step": "table3", **line})
+    return line
+
+
+def _log_offsets(lens, tx_sizes, start):
+    """Where each run's body lies in a log span from `start`, as the log
+    writes transactions of `tx_sizes` runs: a 13-byte header before each
+    body, a 9-byte commit record after each transaction."""
+    offs, pos, k = [], start, 0
+    for size in tx_sizes:
+        for ln in lens[k:k + size].tolist():
+            offs.append(pos + 13)
+            pos += 13 + ln
+        pos += 9
+        k += size
+    return np.array(offs, dtype=np.int64)
+
+
+def _tx_sizes(rng, n, most):
+    """`n` runs cut into transactions of 1 to `most` runs."""
+    sizes = []
+    while n > 0:
+        sizes.append(min(n, int(rng.integers(1, most + 1))))
+        n -= sizes[-1]
+    return sizes
+
+
+def apply_inputs(case, rng):
+    """(addrs, offs, lens) of K2's `case` of APPLY_CASES, or of its old timed
+    case "1e5": destinations in the arena's first NVM_BLADE - APPLY_SPAN
+    bytes, bodies in the log span."""
+    lo = NVM_BLADE - APPLY_SPAN
+    if case == "put":
+        lens = np.array([8, 8, 24], dtype=np.int64)
+        addrs = 32 * rng.choice(lo // 32, 3, replace=False)
+        sizes = [3]
+    elif case == "window":
+        n = 190
+        lens = 8 * rng.integers(1, 31, n)
+        addrs = 256 * rng.choice(lo // 256, n, replace=False) + 8 * rng.integers(
+            0, (256 - lens) // 8 + 1)
+        sizes = _tx_sizes(rng, n, 3)
+    elif case == "queue":
+        n = 2003
+        lens = rng.choice(np.array([8, 16], dtype=np.int64), n)
+        addrs = 64 * rng.choice(lo // 64, n, replace=False)
+        sizes = _tx_sizes(rng, n, 2)
+    elif case == "overlap":
+        k = 16
+        base_len = rng.integers(1, 241, k)
+        base_addr = 1024 * rng.choice(lo // 1024 - 1, k, replace=False) + rng.integers(0, 16, k)
+        pick = rng.integers(0, k, 4 * 8).reshape(4, 8)
+        addrs = np.concatenate([base_addr, base_addr[pick[0]],                       # whole
+                                base_addr[pick[1]] + base_len[pick[1]] // 2,          # partial
+                                base_addr[pick[2]] + base_len[pick[2]] // 4,          # nested
+                                base_addr[pick[3]] - 3])                               # partial, before
+        lens = np.concatenate([base_len, base_len[pick[0]], base_len[pick[1]],
+                               np.maximum(base_len[pick[2]] // 2, 1), base_len[pick[3]]])
+        order = rng.permutation(addrs.size)
+        addrs, lens = addrs[order].clip(0), lens[order]
+        sizes = _tx_sizes(rng, addrs.size, 4)
+    elif case == "1e5":  # offsets drawn at random, not laid out as the log writes them
+        n = 100_000
+        lens = rng.integers(1, 513, n)
+        addrs = rng.integers(0, lo - 1024, n)
+        third = n // 3
+        pick = rng.integers(0, n - third, third)
+        addrs[n - third:] = addrs[pick] + rng.integers(-64, 65, third).clip(0)  # overlaps
+        return addrs, rng.integers(0, APPLY_SPAN - 1024, n), lens
+    else:
+        raise ValueError(f"no K2 case {case}")
+    return addrs.astype(np.int64), _log_offsets(lens, sizes, 0), lens.astype(np.int64)
+
+
+def host_ms(torch, fn, iters=1000):
+    """Median ms of one call of `fn` on the host clock, each call followed by
+    a synchronise (the card's work in it), after one call to warm up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _calls_trace(torch, fn, calls=50, tries=3):
+    """torch.profiler over `calls` calls of `fn`: the kernels the card ran
+    (by name, with their count), its host-to-device copies and the aten ops
+    the host ran.  The profiler at times loses kernels of a short trace,
+    so a trace with fewer kernels than calls is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e.name for e in events if str(e.device_type).endswith("CUDA")]
+        kernels = [n for n in device if not n.startswith(("Memcpy", "Memset"))]
+        out = {"calls": calls, "kernels": {n: kernels.count(n) for n in sorted(set(kernels))},
+               "memcpy_htod": sum(n.startswith("Memcpy HtoD") for n in device),
+               "aten_ops": sorted({e.name for e in events if e.name.startswith("aten::")})}
+        if len(kernels) >= calls:
+            break
+    return out
+
+
+def _apply_case(torch, name, addrs, offs, lens, floor_ms):
+    """K2 on `name`'s runs into a 64 MB arena and one mirror, from the log
+    span at its end: bitwise against its plain version and a second run,
+    its route, and its call's and launch's host ms beside the floor."""
+    from repro_torch.kernels import nvm_log, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(len(addrs))
+    base = torch.randint(0, 256, (NVM_BLADE,), dtype=torch.uint8, device="cuda", generator=gen)
+    lo = NVM_BLADE - APPLY_SPAN
+    dsts, plain_dsts = [base.clone(), base.clone()], [base.clone(), base.clone()]
+    before = dict(nvm_log.apply_launches_by_route)
+    src = dsts[0][lo:]
+    run = lambda: nvm_log.apply_runs(dsts, src, addrs, offs, lens)  # noqa: E731
+    run()
+    routes = [r for r in nvm_log.ROUTES if nvm_log.apply_launches_by_route[r] != before[r]]
+    first = [d.clone() for d in dsts]
+    run()
+    a_d, o_d, n_d = (torch.from_numpy(x).cuda() for x in (addrs, offs, lens))
+    plain = lambda: ref.apply_runs_reference(plain_dsts, plain_dsts[0][lo:], a_d, o_d, n_d)  # noqa: E731
+    plain()
+    equal = all(torch.equal(d, p) for d, p in zip(dsts, plain_dsts))
+    repeat = all(torch.equal(d, f) for d, f in zip(dsts, first))
+    launch = nvm_log._apply_launcher(dsts, src, addrs, offs, lens)
+    starts = np.repeat(addrs - (np.cumsum(lens) - lens), lens)
+    written = int(np.unique(starts + np.arange(int(lens.sum()))).size)  # distinct bytes
+    nbytes = written * (1 + len(dsts)) + 24 * addrs.size
+    bytes_ms, _ = bound(nbytes, 0.0, "float32")
+    line = {"case": APPLY_CASES[name], "runs": int(addrs.size), "bytes": int(lens.sum()),
+            "distinct_bytes": written, "route": routes[0] if len(routes) == 1 else routes,
+            "equal_plain": equal, "bitwise_repeat": repeat, "call_ms": host_ms(torch, run),
+            "launch_ms": host_ms(torch, launch), "plain_ms": host_ms(torch, plain, 100),
+            "floor_ms": floor_ms, "bytes_bound_ms": bytes_ms,
+            "bound_ms": max(bytes_ms, floor_ms),
+            "bound_by": "bytes" if bytes_ms >= floor_ms else "launch"}
+    if line["route"] == "small":  # a launch a call: no copy, no allocation, no plan
+        line["calls_trace"] = _calls_trace(torch, run)
+    del dsts, plain_dsts, first, base, a_d, o_d, n_d, launch, src
     return line
 
 
@@ -2970,15 +3145,8 @@ def _nvm_kernel_cases(torch):
     del arena, s_d, l_d, got, again, want, launch
     # K2: a 64 MB arena with one mirror; 1e5 runs into its first 48 MB from a
     # 16 MB span of its last, a third of them over earlier runs' bytes
-    n = 100_000
-    span = 16 << 20
-    lo = NVM_BLADE - span
-    lens = rng.integers(1, 513, n)
-    addrs = rng.integers(0, lo - 1024, n)
-    third = n // 3
-    pick = rng.integers(0, n - third, third)
-    addrs[n - third:] = addrs[pick] + rng.integers(-64, 65, third).clip(0)  # overlaps
-    offs = rng.integers(0, span - 1024, n)
+    addrs, offs, lens = apply_inputs("1e5", rng)
+    n, lo = addrs.size, NVM_BLADE - APPLY_SPAN
     base = torch.randint(0, 256, (NVM_BLADE,), dtype=torch.uint8, device="cuda", generator=gen)
     dsts = [base.clone(), base.clone()]
     plain_dsts = [base.clone(), base.clone()]
@@ -3004,9 +3172,34 @@ def _nvm_kernel_cases(torch):
                 "runs", "runs": n, "distinct_bytes": written, "equal_plain": equal,
         "bitwise_repeat": repeat, "kernel_ms": timer(run), "launch_ms": timer(launch),
         "plain_ms": timer(plain, iters=3), "library_ms": None, "bound_ms": bound_ms,
-        "bound_by": bound_by}
+        "bound_by": bound_by, "route": nvm_log.route(len(dsts), n),
+        "call_ms": host_ms(torch, run, 50)}
     del dsts, plain_dsts, first, base, timer, launch
     torch.cuda.empty_cache()
+    # K2 at the replay's shapes; no call of the small route plans on the host
+    dev = torch.device("cuda")
+    floor_ms = host_ms(torch, lambda: nvm_log.floor_launch(dev))
+    plans, planner = [0], nvm_log._shared_bytes
+
+    def counted(*args):
+        plans[0] += 1
+        return planner(*args)
+
+    cases = {}
+    rng = np.random.default_rng(65)
+    for name in APPLY_CASES:
+        addrs, offs, lens = apply_inputs(name, rng)
+        plans[0] = 0
+        nvm_log._shared_bytes = counted
+        try:
+            cases[name] = _apply_case(torch, name, addrs, offs, lens, floor_ms)
+        finally:
+            nvm_log._shared_bytes = planner
+        cases[name]["host_plans"] = plans[0]
+        torch.cuda.empty_cache()
+    lines["apply_runs"].update(param_bytes=nvm_log.PARAM_BYTES,
+                               small_words=nvm_log.SMALL_WORDS, floor_ms=floor_ms,
+                               at_replay_shapes=cases)
     return lines
 
 
@@ -3019,6 +3212,7 @@ def phase_nvm(torch):
 
     t0 = time.perf_counter()
     nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
+    nvm_log.apply_launches_by_route = dict.fromkeys(nvm_log.ROUTES, 0)
     failed = []
     steps, cpu_steps, extra, card_s, cpu_s, differ = _nvm_pair(torch, _nvm_quickstart)
     emit({"phase": "nvm", "step": "quickstart", "blade_mb": 16, "find_77": extra["find_77"],
@@ -3035,6 +3229,11 @@ def phase_nvm(torch):
         cells.append(_nvm_table3_cell(torch, structure, variant, *NVM_TABLE3))
     failed += [f"table3 {c['structure']} x {c['variant']} ({c['preload']})" for c in cells
                if not c["equal"]]
+    # every replay of an r or rc cell's ops (2-9 runs) takes the small route;
+    # the multi-version structures' bulk build is one large call in the preload
+    failed += [f"table3 {c['structure']} x {c['variant']}: K2 by route {c['apply_by_route']}"
+               for c in cells if c["variant"] in ("r", "rc") and c["apply_by_route"]["large"]
+               > (c["structure"] in ("mv_bst", "mv_bpt"))]
     for name, scenario in _nvm_recovery_cases().items():
         steps, _, extra, card_s, cpu_s, differ = _nvm_pair(torch, scenario)
         emit({"phase": "nvm", "step": "recovery", "case": name, "card_s": card_s,
@@ -3044,6 +3243,9 @@ def phase_nvm(torch):
             failed.append(f"recovery {name}: {differ} ok {extra['ok']}")
     launches = {"fletcher64_segments": nvm_log.fletcher64_launches,
                 "apply_runs": nvm_log.apply_launches}
+    by_route = dict(nvm_log.apply_launches_by_route)
+    if not by_route["small"]:
+        failed.append(f"K2's small route never launched: {by_route}")
     main_s = time.perf_counter() - t0
     by_variant = {}
     for v in NVM_VARIANTS:
@@ -3058,14 +3260,26 @@ def phase_nvm(torch):
               "preload": NVM_CUT[0], "ops": NVM_CUT[1], "verbs": _nvm_verbs(torch, "bptree",
                                                                             variant)})
     kernels = _nvm_kernel_cases(torch)
+    kernels["apply_runs"]["launches_by_route"] = by_route
     for name, k in kernels.items():
         k["launches"] = launches[name]
         if not (k["equal_plain"] and k["bitwise_repeat"]):
             failed.append(f"kernel {name}: plain {k['equal_plain']} "
                           f"repeat {k['bitwise_repeat']}")
+    for case, c in kernels["apply_runs"]["at_replay_shapes"].items():
+        small = nvm_log.route(2, c["runs"]) == "small"
+        trace = c.get("calls_trace", {})
+        kernels_run = trace.get("kernels", {})
+        if not (c["equal_plain"] and c["bitwise_repeat"]) or c["route"] != nvm_log.route(
+                2, c["runs"]) or (small and (
+                    c["host_plans"] or trace["memcpy_htod"] or trace["aten_ops"]
+                    or not 0 < sum(kernels_run.values()) <= trace["calls"]
+                    or not all("apply_small" in k for k in kernels_run))):
+            failed.append(f"kernel apply_runs at {case}: {c}")
     emit({"phase": "nvm", "main_path_s": main_s, "seconds": time.perf_counter() - t0,
           "cut": {"preload": [NVM_TABLE3[0], NVM_CUT[0]], "ops": [NVM_TABLE3[1], NVM_CUT[1]]},
-          "launches": launches, "ms_per_op_by_variant": by_variant, "kernels": kernels,
+          "launches": launches, "apply_launches_by_route": by_route,
+          "ms_per_op_by_variant": by_variant, "kernels": kernels,
           "ok": not failed, "failed": failed})
     if failed:
         raise AssertionError(f"nvm: {failed}")
@@ -3520,18 +3734,24 @@ def phase_cluster(torch):
 
     t0 = time.perf_counter()
     nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
+    nvm_log.apply_launches_by_route = dict.fromkeys(nvm_log.ROUTES, 0)
     torch.cuda.reset_peak_memory_stats()
     failed, seconds = [], {}
 
     def step(name, scenario, n_ops=None, **line):
+        before = dict(nvm_log.apply_launches_by_route)
         steps, _, extra, card_s, cpu_s, differ = _nvm_pair(torch, scenario)
         gc.collect()
+        routes = {r: nvm_log.apply_launches_by_route[r] - before[r] for r in nvm_log.ROUTES}
+        if name.startswith("scaling") and routes["large"]:  # every put replays 2-3 runs
+            failed.append(f"{name}: K2 by route {routes}")
         seconds[name] = {"card_s": card_s, "cpu_s": cpu_s}
         if n_ops:
             seconds[name].update(card_ms_per_op=card_s * 1e3 / n_ops,
                                  cpu_ms_per_op=cpu_s * 1e3 / n_ops)
         emit({"phase": "cluster", "step": name, **line, **seconds[name],
-              "equal": differ is None, "differ": differ, "compared": len(steps),
+              "apply_by_route": routes, "equal": differ is None, "differ": differ,
+              "compared": len(steps),
               **{k: v for k, v in extra.items() if k != "summary"}})
         if differ is not None or not extra["ok"]:
             failed.append(f"{name}: differs at {differ}, ok {extra['ok']}")
@@ -3556,13 +3776,16 @@ def phase_cluster(torch):
                 "apply_runs": nvm_log.apply_launches}
     if not all(launches.values()):
         failed.append(f"a blade kernel never launched: {launches}")
-    emit({"phase": "cluster", "launches": launches,
+    by_route = dict(nvm_log.apply_launches_by_route)
+    if not by_route["small"]:
+        failed.append(f"K2's small route never launched: {by_route}")
+    emit({"phase": "cluster", "launches": launches, "apply_launches_by_route": by_route,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "seconds_by_step": seconds, "seconds": time.perf_counter() - t0,
           "reduced": CLUSTER_REDUCED, "ok": not failed, "failed": failed})
     if failed:
         raise AssertionError(f"cluster: {failed}")
-    return launches
+    return dict(launches, apply_runs_by_route=by_route)
 
 
 def _fail(reason: str) -> int:
@@ -3822,6 +4045,12 @@ def main(argv=None) -> int:
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "checked": True, "design": NVM_DESIGN[name],
                         "bitwise_repeat": c["bitwise_repeat"], "launch_ms": c["launch_ms"]})
+    k2 = nvm["apply_runs"]  # its two routes, the replay's shapes and each phase's calls by route
+    kernels[-1].update(case_route=k2["route"], call_ms=k2["call_ms"],
+                       param_bytes=k2["param_bytes"],
+                       floor_ms=k2["floor_ms"], at_replay_shapes=k2["at_replay_shapes"],
+                       launches_by_route={"nvm": k2["launches_by_route"],
+                                          "cluster": cluster["apply_runs_by_route"]})
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the main path never launched: {kernels}")
     emit({"kernels": kernels})

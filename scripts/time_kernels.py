@@ -31,7 +31,15 @@ inputs made as `chip_smoke.py`'s kernel cases make them:
                  lifecycle, ties), with device time;
   lifecycle      `chip_smoke.phase_lifecycle` on the checkout's package: its
                  line (printed first) has the delta commit's compress_s and
-                 topk_ms, the device time of its top-k launches.
+                 topk_ms, the device time of its top-k launches;
+  apply_runs     K2 (`nvm_log.apply_runs`) on a 64 MB arena and one mirror at
+                 the blade replay's shapes (`chip_smoke.APPLY_CASES`) and at
+                 1e5 runs: `call_ms` and `launch_ms` (the launch on a table
+                 planned before, `_apply_launcher`), medians of 1,000 calls
+                 (50 at 1e5 runs) on the host clock, each synchronised
+                 (`chip_smoke.host_ms`), with the route where the checkout
+                 has one; and the floor, an empty kernel's launch timed
+                 alike, where the checkout has one (`nvm_log.floor_launch`).
 
     python3 scripts/time_kernels.py --root path/to/checkout --case train_kernels
 
@@ -67,7 +75,7 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
-CASES = ("scan_forwards", "train_kernels", "flash_forwards", "topk", "lifecycle")
+CASES = ("scan_forwards", "train_kernels", "flash_forwards", "topk", "lifecycle", "apply_runs")
 # each kernel of a call whose device time is split out, by a substring of its name
 LAUNCHES = {"flash_fwd": ("flash_fwd_sm90",),
             "flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
@@ -205,6 +213,27 @@ def main(argv=None) -> int:
 
         _build.build()  # as chip_smoke.py does first: no build inside a commit's timing
         phase_lifecycle(torch)
+    elif args.case == "apply_runs":
+        from chip_smoke import APPLY_CASES, APPLY_SPAN, NVM_BLADE, apply_inputs, host_ms as hms
+        from repro_torch.kernels import _build, nvm_log
+
+        _build.build(["nvm_log"])
+        gen = torch.Generator(device="cuda").manual_seed(64)
+        base = torch.randint(0, 256, (NVM_BLADE,), dtype=torch.uint8, device="cuda",
+                             generator=gen)
+        dsts, lo = [base.clone(), base.clone()], NVM_BLADE - APPLY_SPAN
+        if hasattr(nvm_log, "floor_launch"):
+            out["floor_ms"] = hms(torch, lambda: nvm_log.floor_launch(torch.device("cuda")))
+        rng = np.random.default_rng(65)
+        for case in (*APPLY_CASES, "1e5"):
+            addrs, offs, lens = apply_inputs(case, rng)
+            iters = 50 if case == "1e5" else 1000
+            args_ = (dsts, dsts[0][lo:], addrs, offs, lens)
+            out[f"apply_{case}"] = {
+                "runs": int(addrs.size),
+                "route": nvm_log.route(2, addrs.size) if hasattr(nvm_log, "route") else None,
+                "call_ms": hms(torch, lambda: nvm_log.apply_runs(*args_), iters),
+                "launch_ms": hms(torch, nvm_log._apply_launcher(*args_), iters)}
     elif args.case == "topk":
         for case in ("random", "lifecycle", "ties"):
             x = topk_input(torch, case, 128256 * 3072)  # llama3.2-3b's embedding

@@ -12,23 +12,39 @@ the paper puts on the blade runs there as two kernels of
   ``ref.fletcher64_segments_reference``; both equal
   ``repro_torch.core.oplog.fletcher64`` of each body, bit for bit.
 * ``apply_runs`` (K2) replays a span's memory logs into the arena and its
-  synchronous mirrors in one launch, last writer winning where runs
-  overlap, as the serial loop.  Its plain version is
-  ``ref.apply_runs_reference``.
+  synchronous mirrors, last writer winning where runs overlap, as the serial
+  loop.  Its plain version is ``ref.apply_runs_reference``.
 
-What bounds them on the H100: bytes (K1 reads each body once; K2 reads each
-run once and writes it once to each destination), at 3.35 TB/s.
+What bounds them on the H100: K1 the bytes (each body read once, at 3.35
+TB/s).  K2 is bound by bytes only at a scale the replay never gives it (1e5
+runs); a replaying op hands it 2-9 runs of 8-240 bytes (a batched window up
+to ~2,000), whose bytes take nanoseconds, so its bound is one launch, and its
+call was the host's planning around that launch.  K2 therefore has two routes
+(``route``), by the size of its run table:
+
+* ``small``: a table that fits the kernel's parameter space (``PARAM_BYTES``,
+  ``SMALL_WORDS`` int64 words; ``small_table`` packs it) is passed by value
+  with the launch.  The call is the refusals' checks, the packing and one
+  launch: no host-to-device copy, no pinned or device allocation, no plan.
+  The kernel finds each byte's last writer itself: a byte of run i is written
+  only where no later run covers it.
+* ``large``: a longer table is planned on the host (``_shared_bytes``: which
+  bytes several runs share), staged in a pinned buffer kept per device and
+  copied to the card, where two passes settle each shared byte's owner
+  (``atomicMax`` of the run index) and copy.  The staging buffers and the
+  owner scratch are kept and grown, not allocated a call.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises: nothing falls back.  ``fletcher64_launches`` and ``apply_launches``
 count the calls of each wrapper that launched its kernel (one a call,
-whatever the launches inside); the plain path never adds to them.
+whatever the launches inside), ``apply_launches_by_route`` K2's calls by
+route; the plain path never adds to them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +55,18 @@ from .ref import apply_runs_reference, fletcher64_segments_reference
 # segments longer than this take a block each instead of a warp
 LONG_SEGMENT = 16 << 10
 
+# K2's small route: the kernel's parameters hold 32,764 bytes (CUDA >= 12.1
+# on Volta and later): the source pointer and the two int32 counts, then the
+# run table in int64 words
+PARAM_BYTES = 32764
+SMALL_WORDS = (PARAM_BYTES - 16) // 8
+ROUTES = ("small", "large")
+# up to this many runs the refusals' checks run on Python ints
+_FEW = 64
+
 fletcher64_launches = 0
 apply_launches = 0
+apply_launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -49,9 +75,25 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.repro_fletcher64_segments.argtypes = [p, ll, p, p, p, i, p, i, p, p]
         lib.repro_fletcher64_segments.restype = i
-        lib.repro_apply_runs.argtypes = [p, i, i, p, p, ll, p]
+        lib.repro_apply_small.argtypes = [p, i, i, p, i, p]
+        lib.repro_apply_small.restype = i
+        lib.repro_apply_floor.argtypes = [i, p]
+        lib.repro_apply_floor.restype = i
+        lib.repro_apply_small_words.argtypes = []
+        lib.repro_apply_small_words.restype = i
+        if lib.repro_apply_small_words() != SMALL_WORDS:
+            raise RuntimeError(f"nvm_log: the kernel's small table holds "
+                               f"{lib.repro_apply_small_words()} words, the wrapper's "
+                               f"{SMALL_WORDS}")
+        lib.repro_apply_runs.argtypes = [p, i, i, p, p, ll, i, p]
         lib.repro_apply_runs.restype = i
     return lib
+
+
+def _stream(dev: torch.device) -> int:
+    """The current stream of `dev`, as the handle the C entries take
+    (without building a ``torch.cuda.Stream``: a few microseconds a call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _int64(x) -> np.ndarray:
@@ -140,6 +182,76 @@ def _shared_bytes(addrs: np.ndarray, lens: np.ndarray):
     return comp, int(seg_len[shared].sum())
 
 
+def table_bytes(ndst: int, n: int) -> int:
+    """The bytes of the small route's launch parameters for `n` runs into
+    `ndst` destinations: the source pointer, two int32 counts, the table."""
+    return 16 + 8 * (ndst + 3 * n)
+
+
+def route(ndst: int, n: int) -> str:
+    """K2's route for `n` runs into `ndst` destinations: "small" where the
+    run table fits the launch's parameters (``PARAM_BYTES``), else "large"."""
+    return "small" if table_bytes(ndst, n) <= PARAM_BYTES else "large"
+
+
+def small_table(ptrs, addrs, offs, lens) -> np.ndarray:
+    """The small route's run table, int64 [ndst + 3n]: the destination
+    pointers, then addrs, offs and lens.  Raises where it does not fit the
+    launch's parameters."""
+    ndst, n = len(ptrs), len(addrs)
+    if not n == len(offs) == len(lens):
+        raise ValueError("small_table: addrs, offs and lens differ in length")
+    if route(ndst, n) != "small":
+        raise ValueError(f"small_table: {n} runs into {ndst} destinations take "
+                         f"{table_bytes(ndst, n)} bytes of parameters, over {PARAM_BYTES}")
+    table = np.empty(ndst + 3 * n, dtype=np.int64)
+    table[:ndst] = ptrs
+    table[ndst:ndst + n] = addrs
+    table[ndst + n:ndst + 2 * n] = offs
+    table[ndst + 2 * n:] = lens
+    return table
+
+
+def read_table(table: np.ndarray, ndst: int) -> Tuple[np.ndarray, ...]:
+    """(ptrs, addrs, offs, lens) of a table ``small_table`` packed."""
+    n = (table.size - ndst) // 3
+    if ndst < 1 or table.size != ndst + 3 * n:
+        raise ValueError(f"read_table: {table.size} words are no table of {ndst} destinations")
+    return table[:ndst], *(table[ndst + k * n: ndst + (k + 1) * n] for k in range(3))
+
+
+def _check_runs(dsts: List[torch.Tensor], src: torch.Tensor, addrs: np.ndarray,
+                offs: np.ndarray, lens: np.ndarray) -> None:
+    """The refusals: a run that reads outside the source, writes outside a
+    destination, or writes over the source in a destination's memory.  On
+    Python ints for a few runs, on numpy arrays for more."""
+    nsrc, ndst = src.numel(), min(d.numel() for d in dsts)
+    few = addrs.size <= _FEW
+    if few:
+        a, o, n = addrs.tolist(), offs.tolist(), lens.tolist()
+        if min(n) < 0 or min(o) < 0 or max([x + k for x, k in zip(o, n)]) > nsrc:
+            raise ValueError("apply_runs: a run reads outside the source")
+        if min(a) < 0 or max([x + k for x, k in zip(a, n)]) > ndst:
+            raise ValueError("apply_runs: a run writes outside a destination")
+    else:
+        if lens.min() < 0 or offs.min() < 0 or (offs + lens).max() > nsrc:
+            raise ValueError("apply_runs: a run reads outside the source")
+        if addrs.min() < 0 or (addrs + lens).max() > ndst:
+            raise ValueError("apply_runs: a run writes outside a destination")
+    for d in dsts:
+        if d.untyped_storage().data_ptr() != src.untyped_storage().data_ptr():
+            continue
+        lo = (src.data_ptr() - d.data_ptr())
+        if few:
+            hit = next((i for i, (x, k) in enumerate(zip(a, n))
+                        if x < lo + nsrc and x + k > lo and k > 0), None)
+        else:
+            hits = (addrs < lo + nsrc) & (addrs + lens > lo) & (lens > 0)
+            hit = int(np.argmax(hits)) if hits.any() else None
+        if hit is not None:
+            raise ValueError(f"apply_runs: run {hit} writes over the source")
+
+
 def apply_runs(dsts: Sequence[torch.Tensor], src: torch.Tensor, addrs, offs, lens) -> None:
     """For each run i in order, ``dst[addrs[i] : addrs[i] + lens[i]] =
     src[offs[i] : offs[i] + lens[i]]`` for every ``dst`` of `dsts` (the
@@ -160,17 +272,7 @@ def apply_runs(dsts: Sequence[torch.Tensor], src: torch.Tensor, addrs, offs, len
     n = addrs.size
     if n == 0:
         return
-    if lens.min() < 0 or offs.min() < 0 or (offs + lens).max() > src.numel():
-        raise ValueError("apply_runs: a run reads outside the source")
-    if addrs.min() < 0 or (addrs + lens).max() > min(d.numel() for d in dsts):
-        raise ValueError("apply_runs: a run writes outside a destination")
-    for d in dsts:
-        if d.untyped_storage().data_ptr() != src.untyped_storage().data_ptr():
-            continue
-        lo = (src.data_ptr() - d.data_ptr())
-        hit = (addrs < lo + src.numel()) & (addrs + lens > lo) & (lens > 0)
-        if hit.any():
-            raise ValueError(f"apply_runs: run {int(np.argmax(hit))} writes over the source")
+    _check_runs(dsts, src, addrs, offs, lens)
     dev = src.device
     if dev.type == "cpu":
         apply_runs_reference(dsts, src, *(torch.from_numpy(x) for x in (addrs, offs, lens)))
@@ -184,21 +286,88 @@ def apply_runs(dsts: Sequence[torch.Tensor], src: torch.Tensor, addrs, offs, len
 
 def _apply_launcher(dsts: List[torch.Tensor], src: torch.Tensor, addrs: np.ndarray,
                     offs: np.ndarray, lens: np.ndarray) -> Callable[[], None]:
-    """The host's part of K2 (the plan of shared bytes, the run table on the
-    card, the owner scratch), and a call that launches the kernel on it."""
-    dev, n = src.device, addrs.size
-    comp, count = _shared_bytes(addrs, lens)
-    ptrs = np.array([d.data_ptr() for d in dsts], dtype=np.int64)
-    table = _to(dev, ptrs, addrs, offs, lens, comp)
-    owner = torch.empty(max(count, 1), dtype=torch.int32, device=dev)
+    """The host's part of K2 on the route of the table's size, and a call
+    that launches the kernel on it (so a timer can take the launch alone)."""
+    ptrs = [d.data_ptr() for d in dsts]
+    if route(len(ptrs), addrs.size) == "small":
+        return _small_launcher(src, small_table(ptrs, addrs, offs, lens), len(ptrs))
+    return _large_launcher(ptrs, src, addrs, offs, lens)
+
+
+def _launched(route_: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"apply_runs: kernel launch failed with cudaError {err}")
+    global apply_launches
+    apply_launches += 1
+    apply_launches_by_route[route_] += 1
+
+
+def _small_launcher(src: torch.Tensor, table: np.ndarray, ndst: int) -> Callable[[], None]:
+    """One launch with `table` (``small_table``'s) in its parameters; the C
+    entry copies the table into them, so nothing outlives the call."""
+    dev, n, sp = src.device, (table.size - ndst) // 3, src.data_ptr()
 
     def launch() -> None:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _lib().repro_apply_runs(table.data_ptr(), len(dsts), n, src.data_ptr(),
-                                          owner.data_ptr(), count, stream)
-        if err:
-            raise RuntimeError(f"apply_runs: kernel launch failed with cudaError {err}")
-        global apply_launches
-        apply_launches += 1
+        _launched("small", _lib().repro_apply_small(table.ctypes.data, ndst, n, sp, dev.index,
+                                                    _stream(dev)))
     return launch
+
+
+class _Staging:
+    """The large route's buffers on one device, kept and grown: the pinned
+    host copy of the table, the table on the card, the owner scratch.  The
+    host copy is rewritten only once the copy out of it has run (`copied`);
+    the card's buffers are used in stream order, a call on another stream
+    first waiting for the last launch (`done`)."""
+
+    def __init__(self, dev: torch.device):
+        self.host = torch.empty(0, dtype=torch.int64)
+        self.table = torch.empty(0, dtype=torch.int64, device=dev)
+        self.owner = torch.empty(0, dtype=torch.int32, device=dev)
+        self.copied = torch.cuda.Event()
+        self.done = torch.cuda.Event()
+
+
+_STAGING: Dict[torch.device, _Staging] = {}
+
+
+def _large_launcher(ptrs: List[int], src: torch.Tensor, addrs: np.ndarray, offs: np.ndarray,
+                    lens: np.ndarray) -> Callable[[], None]:
+    """The plan of shared bytes, the table staged and copied to the card,
+    and a launch of the two passes on it (on the table staged last)."""
+    dev, n, ndst = src.device, addrs.size, len(ptrs)
+    comp, count = _shared_bytes(addrs, lens)
+    st = _STAGING.get(dev)
+    if st is None:
+        st = _STAGING[dev] = _Staging(dev)
+    stream = torch.cuda.current_stream(dev)
+    words = ndst + 4 * n
+    st.copied.synchronize()
+    stream.wait_event(st.done)
+    if st.host.numel() < words:
+        size = 1 << (words - 1).bit_length()
+        st.host = torch.empty(size, dtype=torch.int64, pin_memory=True)
+        st.table = torch.empty(size, dtype=torch.int64, device=dev)
+    if st.owner.numel() < count:
+        st.owner = torch.empty(1 << (count - 1).bit_length(), dtype=torch.int32, device=dev)
+    np.concatenate((ptrs, addrs, offs, lens, comp), out=st.host.numpy()[:words])
+    st.table[:words].copy_(st.host[:words], non_blocking=True)
+    st.copied.record(stream)
+    table, owner = st.table, st.owner
+
+    def launch() -> None:
+        _launched("large", _lib().repro_apply_runs(table.data_ptr(), ndst, n, src.data_ptr(),
+                                                   owner.data_ptr(), count, dev.index,
+                                                   stream.cuda_stream))
+        st.done.record(stream)
+    return launch
+
+
+def floor_launch(dev: torch.device) -> None:
+    """An empty kernel's launch on `dev`'s current stream: the floor under a
+    small-route call's time."""
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    err = _lib().repro_apply_floor(dev.index, _stream(dev))
+    if err:
+        raise RuntimeError(f"floor_launch: kernel launch failed with cudaError {err}")

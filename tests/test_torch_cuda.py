@@ -987,6 +987,126 @@ def test_apply_runs_kernel_matches_serial_loop(cuda, mirrors):
         assert torch.equal(d, p)
 
 
+def _apply_both(cuda, dsts, src_of, addrs, offs, lens):
+    """K2 through the wrapper on `dsts`, the plain version on copies, and the
+    serial loop on the host: all three bitwise equal.  `src_of(dsts)` is the
+    source tensor of a destination list.  Returns the wrapper's routes."""
+    from repro_torch.kernels import nvm_log
+
+    plain = [d.clone() for d in dsts]
+    want = [bytearray(d.cpu().numpy().tobytes()) for d in dsts]
+    src = bytes(src_of(dsts).cpu().numpy().tobytes())
+    for w in want:
+        for a, o, ln in zip(addrs.tolist(), offs.tolist(), lens.tolist()):
+            w[a:a + ln] = src[o:o + ln]
+    before = dict(nvm_log.apply_launches_by_route)
+    nvm_log.apply_runs(dsts, src_of(dsts), addrs, offs, lens)
+    ref.apply_runs_reference(plain, src_of(plain).clone(),
+                             *(torch.from_numpy(x).to(cuda) for x in (addrs, offs, lens)))
+    for d, p, w in zip(dsts, plain, want):
+        assert d.cpu().numpy().tobytes() == bytes(w)
+        assert torch.equal(d, p)
+    return {r: nvm_log.apply_launches_by_route[r] - before[r] for r in nvm_log.ROUTES}
+
+
+@pytest.mark.parametrize("mirrors", [0, 2])
+def test_apply_runs_small_route_every_alignment(cuda, mirrors):
+    """The small route on overlapping runs for every pair of (src + off) mod
+    16 and (dst + addr) mod 16, runs of 0, 1, 15, 16, 17 and 240 bytes, each
+    with a whole, a partial and a nested overlap in shuffled order; with 2
+    mirrors one of them starts 5 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(160 + mirrors)
+    size, slot = 1 << 19, 1024
+    base = rng.integers(0, 256, size, dtype=np.uint8)
+    dsts = [torch.from_numpy(base.copy()).to(cuda)]
+    if mirrors:
+        dsts.append(torch.from_numpy(base.copy()).to(cuda))
+        odd = torch.empty(size + 16, dtype=torch.uint8, device=cuda)[5:5 + size]
+        odd.copy_(dsts[0])
+        dsts.append(odd)
+    src = torch.from_numpy(rng.integers(0, 256, 1 << 16, dtype=np.uint8)).to(cuda)
+    assert src.data_ptr() % 16 == 0 == dsts[0].data_ptr() % 16
+    lengths = (0, 1, 15, 16, 17, 240)
+    for s in range(16):
+        addrs, offs, lens = [], [], []
+        for d in range(16):
+            for k, ln in enumerate(lengths):
+                at = (d * len(lengths) + k) * slot + 64 + d
+                off = 16 * int(rng.integers(0, (1 << 12) - 32)) + s
+                # the run, a whole copy of it, a partial overlap, a nested run
+                addrs += [at, at, at + ln // 2, at + ln // 4]
+                offs += [off, off + 7, off + 3, off + 1]
+                lens += [ln, ln, ln, ln // 2]
+        order = rng.permutation(len(addrs))
+        addrs, offs, lens = (np.array(x, dtype=np.int64)[order] for x in (addrs, offs, lens))
+        routes = _apply_both(cuda, dsts, lambda ds: src, addrs, offs, lens)
+        assert routes == {"small": 1, "large": 0}
+
+
+@pytest.mark.parametrize("mirrors", [0, 2])
+def test_apply_runs_route_boundary(cuda, mirrors):
+    """At the small route's largest table it takes one launch with the table
+    in its parameters; one run more takes the large route.  Both from a log
+    span inside the arena, on overlapping runs."""
+    from repro_torch.kernels import nvm_log
+
+    rng = np.random.default_rng(7 + mirrors)
+    size = 1 << 20
+    base = rng.integers(0, 256, size, dtype=np.uint8)
+    lo = size // 2
+    ndst = 1 + mirrors
+    limit = (nvm_log.SMALL_WORDS - ndst) // 3
+    assert nvm_log.route(ndst, limit) == "small" and nvm_log.route(ndst, limit + 1) == "large"
+    for n, want in ((limit, "small"), (limit + 1, "large")):
+        dsts = [torch.from_numpy(base.copy()).to(cuda) for _ in range(ndst)]
+        addrs = rng.integers(0, lo - 300, n)
+        addrs[n // 2:] = addrs[: n - n // 2] + rng.integers(-20, 21, n - n // 2)
+        addrs = addrs.clip(0)
+        lens = rng.integers(0, 257, n)
+        offs = rng.integers(0, size - lo - 300, n)
+        routes = _apply_both(cuda, dsts, lambda ds: ds[0][lo:], addrs, offs, lens)
+        assert routes == {r: int(r == want) for r in nvm_log.ROUTES}
+
+
+def test_apply_runs_small_call_is_one_launch(cuda, monkeypatch):
+    """A small-route call, a hashtable put's 3 runs into an arena and a
+    mirror: one kernel on the card, no host-to-device copy, no aten op on
+    the host (no allocation, pinned or not) and no host plan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import nvm_log
+
+    dsts = [torch.zeros(1 << 20, dtype=torch.uint8, device=cuda) for _ in range(2)]
+    dsts[0][1 << 19:] = 7
+    src = dsts[0][1 << 19:]
+    args = ([4096, 8192, 12288 + 3], [13, 34, 55], [8, 8, 24])
+    nvm_log.apply_runs(dsts, src, *args)  # loads the library
+    torch.cuda.synchronize()
+
+    def no_plan(*_):
+        raise AssertionError("a small-route call planned on the host")
+    monkeypatch.setattr(nvm_log, "_shared_bytes", no_plan)
+    for _ in range(3):  # the profiler at times loses a kernel
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            nvm_log.apply_runs(dsts, src, *args)
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if device:
+            break
+    assert [n for n in device if "apply_small" in n] == device and len(device) == 1
+    assert not [e.name for e in prof.events() if e.name.startswith("aten::")]
+    assert all(bool((d[4096:4104] == 7).all()) and bool((d[12291:12315] == 7).all())
+               for d in dsts)
+
+
+def test_apply_runs_floor_launch(cuda):
+    """The empty kernel the smoke times as a small call's floor launches."""
+    from repro_torch.kernels import nvm_log
+
+    nvm_log.floor_launch(torch.device(cuda))
+    torch.cuda.synchronize()
+
+
 def test_hashtable_on_a_card_blade_equals_the_cpu_blade(cuda):
     """The same RemoteHashTable run on a blade on the card and on the CPU:
     the same arena and mirror digests, clocks and Stats, and the card's
