@@ -12,6 +12,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --only mesh
     python3 chip_smoke.py --only build,nvm
     python3 chip_smoke.py --only build,cluster
+    python3 chip_smoke.py --only build,sim
 
 It prints one JSON object per line, one line per phase:
 
@@ -201,6 +202,22 @@ It prints one JSON object per line, one line per phase:
            Each step's card and CPU seconds (ms an op where it has ops);
            the phase's line: K1's and K2's launches, max_memory_allocated,
            reduced (the op counts cut, if any)
+  sim      the simulator's other figures (tests/_sim_driver.py's scenarios,
+           loaded for the port alone), each step on a card blade or cluster
+           and again on the CPU, digests, clocks, Stats, cache counts,
+           every op's result and the figure's virtual rows held equal:
+           Fig 9 (SWMR: the lock-based BST under the writer-preferred
+           seqlock, the multi-version BST) at 1 and 6 readers and the
+           vector hashtable row at their published sizes; the other vector
+           rows, the cross-structure batch_all window, the 4-blade cluster
+           row, Figs 7, 8, 12, Table 2's allocators, Fig 11's replication,
+           Fig 10 v2 (multi-writer, open loop) and the open-loop sweep
+           (under an obs session, its export read after the engines die)
+           at benchmarks/run.py --smoke sizes; no staleness violation and
+           no committed stale epoch.  A line a step: card and CPU seconds
+           and ms an op, the virtual rows, the card's verb copies, K1's and
+           K2's launches (K2 by route), max_memory_allocated, the cuts
+           (reduced) and the first step that differs (null)
   time     the seconds of the whole run, the kernels' build included
   kernels  every kernel of the path: its launches over the phase that runs
            it (serve, train, train_recurrent, train_stablelm or lifecycle,
@@ -213,7 +230,7 @@ It prints one JSON object per line, one line per phase:
            topk_compress its design, fallback share and other inputs, the
            flash backward at head_dim 256 and the two reverse scans their
            designs and per-launch times; the blade's two kernels, with the
-           nvm and cluster phases' launches (they replace no TPU kernel)
+           nvm, cluster and sim phases' launches (they replace no TPU kernel)
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and the
 script exits non-zero without it.  A phase that runs past PHASE_STALL_S
@@ -244,7 +261,7 @@ ROOT = Path(__file__).resolve().parent
 PHASE_STALL_S = 300
 KERNEL_NAME_CHARS = 160
 PHASES = ("build", "kernel", "parity", "serve", "profile", "store", "train", "train_recurrent",
-          "train_stablelm", "train_parity", "lifecycle", "mesh", "nvm", "cluster")
+          "train_stablelm", "train_parity", "lifecycle", "mesh", "nvm", "cluster", "sim")
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense; fp32 off the tensor cores
 SFU_EXP_PER_S = 132 * 16 * 1.98e9   # exponentials: 16 an SM a clock, 132 SMs, 1.98 GHz boost
@@ -3788,6 +3805,148 @@ def phase_cluster(torch):
     return dict(launches, apply_runs_by_route=by_route)
 
 
+# ---------------------------------------------------------------------- sim
+# tests/_sim_driver.py's scenarios, each a function of a package namespace;
+# loaded here for the port alone (the driver imports no package at module
+# level).  Fig 9 and the vector hashtable row at the figures' published
+# sizes; every other step at benchmarks/run.py --smoke's.
+SIM_DRIVER = ROOT / "tests" / "_sim_driver.py"
+SIM_REDUCED = {
+    "vector": "preload 15000 -> 400, ops 2560 -> 128 (the rows but the hashtable's)",
+    "sweeps": "preload 20000 -> 400, ops 2000 -> 120; batches (1, 16, 64, 256, 1024, 4048) "
+              "-> (1, 1024), cache fractions 6 -> (0.10, 1.0), write fractions 5 -> (1.0, 0.5)",
+    "table2": "allocations 20000 -> 1500",
+    "fig11": "preload 10000 -> 400, ops 2500 -> 120",
+    "fig10": "writers (1, 2, 4, 8) -> (1, 2), pool 4096 -> 400, ops 1500 -> 150 a writer",
+    "open_loop": "stations 6 -> 2, pool 2000 -> 256, ops 2000 -> 96 a station, result cache "
+                 "4096 -> 64 entries"}
+
+
+def _sim_driver():
+    """tests/_sim_driver.py as a module (not through sys.path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_sim_driver", SIM_DRIVER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sim_steps(drv):
+    """(figure, step, scenario(ns), reduced or None) in the phase's order."""
+    from functools import partial
+
+    P, N = drv.SMOKE
+    V = max(N, 128)  # benchmarks/run.py gives the vector rows max(n_ops, 128)
+    preload, writer_ops, reader_ops = drv.FIG9
+    vector = SIM_REDUCED["vector"]
+    return ([("fig9", f"{mode} readers={k}",
+              partial(drv.fig9, mode=mode, n_readers=k, preload=preload,
+                      writer_ops=writer_ops, reader_ops=reader_ops), None)
+             for mode in ("lock", "mv") for k in (1, 6)]
+            + [("vector", "hashtable", partial(drv.vector_structure, structure="hashtable",
+                                               preload=drv.VECTOR[0], n_ops=drv.VECTOR[1],
+                                               batch=drv.VECTOR[2]), None)]
+            + [("vector", s, partial(drv.vector_structure, structure=s, preload=P, n_ops=V),
+                vector) for s in drv.VECTOR_STRUCTURES[1:]]
+            + [("vector", "cross_structure",
+                partial(drv.vector_cross_structure, preload=P, n_ops=V), vector),
+               ("vector", "cluster", partial(drv.vector_cluster, preload=P, n_ops=V), vector)]
+            + [("sweeps", fig, partial(drv.sweeps, preload=P, n_ops=N, figs=(fig,),
+                                       **drv.SWEEPS), SIM_REDUCED["sweeps"])
+               for fig in ("fig7", "fig8", "fig12")]
+            + [("table2", "allocators", drv.table2, SIM_REDUCED["table2"]),
+               ("fig11", "replication", partial(drv.fig11, preload=P, ops=N),
+                SIM_REDUCED["fig11"]),
+               ("fig10", "multi_writer", partial(drv.fig10, **drv.FIG10), SIM_REDUCED["fig10"]),
+               ("open_loop", "sweep", partial(drv.observed, scenario=drv.open_loop,
+                                              **drv.OPEN_LOOP), SIM_REDUCED["open_loop"])])
+
+
+def _sim_violations(figure, rows):
+    """The figure's own correctness counts, which must be 0."""
+    if figure == "fig10":
+        return {"committed_stale_epochs": rows[0]["committed_stale_epochs"],
+                "read_back_mismatches": rows[0]["read_back_mismatches"]}
+    if figure == "open_loop":
+        return {"staleness_violations": rows[0]["staleness_violations"]}
+    return {}
+
+
+def phase_sim(torch):
+    """The simulator's paths Table 3 and the cluster figures do not reach,
+    on the card, each step against the same step on the CPU (_nvm_pair):
+    the seqlock and the multi-version BST (Fig 9), the vector ops and the
+    combined flush, the sweeps, the allocators, replication, and the
+    open-loop engine over card clusters (Fig 10 v2, the open-loop sweep).
+    Returns K1's and K2's launches over the phase."""
+    import gc
+
+    from repro_torch.kernels import nvm_log
+
+    t0 = time.perf_counter()
+    drv = _sim_driver()
+    nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
+    nvm_log.apply_launches_by_route = dict.fromkeys(nvm_log.ROUTES, 0)
+    torch.cuda.reset_peak_memory_stats()
+    failed, lines = [], []
+    for figure, name, scenario, reduced in _sim_steps(drv):
+        wall = {}
+
+        def run(dev, scenario=scenario, wall=wall):
+            ns = drv.pkg("repro_torch", dev)
+            out = scenario(ns)
+            if "wall" in out:
+                wall["card" if dev == "cuda" else "cpu"] = out["wall"]
+            return [*out["steps"], ("rows", out["rows"])], dict(out, copies=ns.copies)
+        before = (nvm_log.fletcher64_launches, nvm_log.apply_launches,
+                  dict(nvm_log.apply_launches_by_route))
+        torch.cuda.reset_peak_memory_stats()
+        steps, _, extra, card_s, cpu_s, differ = _nvm_pair(torch, run)
+        gc.collect()
+        n_ops = extra["ops"]
+        bad = {k: v for k, v in _sim_violations(figure, extra["rows"]).items() if v}
+        line = {"phase": "sim", "figure": figure, "step": name, "ops": n_ops,
+                "card_s": card_s, "cpu_s": cpu_s, "card_ms_per_op": card_s * 1e3 / n_ops,
+                "cpu_ms_per_op": cpu_s * 1e3 / n_ops, "rows": extra["rows"],
+                **extra["copies"],
+                "fletcher64_launches": nvm_log.fletcher64_launches - before[0],
+                "apply_launches": nvm_log.apply_launches - before[1],
+                "apply_by_route": {r: nvm_log.apply_launches_by_route[r] - before[2][r]
+                                   for r in nvm_log.ROUTES},
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "compared": len(steps), "differ": differ, "violations": bad,
+                "reduced": reduced}
+        if wall:  # the vector rows: each mode's puts and gets, ms an op, card and CPU
+            line["mode_ms_per_op"] = {k: [wall["card"][k], wall["cpu"][k]] for k in wall["card"]}
+        emit(line)
+        lines.append(line)
+        if differ is not None or bad:
+            failed.append(f"{figure} {name}: differs at {differ}, violations {bad}")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("repro", "jax", "benchmarks"))
+    if leaked:
+        failed.append(f"the driver imported {leaked[:5]}")
+    launches = {"fletcher64_segments": nvm_log.fletcher64_launches,
+                "apply_runs": nvm_log.apply_launches}
+    by_route = dict(nvm_log.apply_launches_by_route)
+    if not launches["apply_runs"]:
+        failed.append(f"K2 never launched: {launches}")
+    by_figure = {}
+    for ln in lines:
+        f = by_figure.setdefault(ln["figure"], {"ops": 0, "card_s": 0.0, "cpu_s": 0.0})
+        for k in ("ops", "card_s", "cpu_s"):
+            f[k] += ln[k]
+    for f in by_figure.values():
+        f.update(card_ms_per_op=f["card_s"] * 1e3 / f["ops"],
+                 cpu_ms_per_op=f["cpu_s"] * 1e3 / f["ops"])
+    emit({"phase": "sim", "launches": launches, "apply_launches_by_route": by_route,
+          "by_figure": by_figure, "seconds": time.perf_counter() - t0,
+          "ok": not failed, "failed": failed})
+    if failed:
+        raise AssertionError(f"sim: {failed}")
+    return dict(launches, apply_runs_by_route=by_route)
+
+
 def _fail(reason: str) -> int:
     """An early exit: its reason on stderr and as one line on stdout, no result."""
     print(f"chip_smoke: {reason}", file=sys.stderr, flush=True)
@@ -3887,8 +4046,10 @@ def main(argv=None) -> int:
     mesh = run("mesh", phase_mesh, torch)
     nvm = run("nvm", phase_nvm, torch)
     cluster = run("cluster", phase_cluster, torch)
+    sim = run("sim", phase_sim, torch)
     emit({"phase": "time", "seconds": time.perf_counter() - t_start})
-    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle, mesh, nvm, cluster):
+    if None in (cases, served, train, recurrent, stablelm, parity, lifecycle, mesh, nvm, cluster,
+                sim):
         return 0  # a partial run checks what it ran and claims nothing more
 
     # each kernel's launches over the phase of the main path that runs it:
@@ -4036,9 +4197,11 @@ def main(argv=None) -> int:
         c = nvm[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/nvm_log.cu",
-                        "replaces": replaces, "launches": c["launches"] + cluster[name],
-                        "launches_from": "nvm+cluster",
-                        "launches_by_phase": {"nvm": c["launches"], "cluster": cluster[name]},
+                        "replaces": replaces,
+                        "launches": c["launches"] + cluster[name] + sim[name],
+                        "launches_from": "nvm+cluster+sim",
+                        "launches_by_phase": {"nvm": c["launches"], "cluster": cluster[name],
+                                              "sim": sim[name]},
                         "case": c["case"],
                         "max_abs_err": 0.0 if c["equal_plain"] else None, "ms": c["kernel_ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -4050,7 +4213,8 @@ def main(argv=None) -> int:
                        param_bytes=k2["param_bytes"],
                        floor_ms=k2["floor_ms"], at_replay_shapes=k2["at_replay_shapes"],
                        launches_by_route={"nvm": k2["launches_by_route"],
-                                          "cluster": cluster["apply_runs_by_route"]})
+                                          "cluster": cluster["apply_runs_by_route"],
+                                          "sim": sim["apply_runs_by_route"]})
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the main path never launched: {kernels}")
     emit({"kernels": kernels})

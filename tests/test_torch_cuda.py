@@ -1198,6 +1198,34 @@ def test_two_blade_cluster_on_the_card_equals_the_cpu_cluster(cuda):
     assert on_card[3] == 1 and on_card[-1] == list(range(260)) + list(range(501, 541))
 
 
+@pytest.mark.parametrize("step", ["fig9 lock readers=6", "cross_structure batch_all"])
+def test_sim_step_on_a_card_blade_equals_the_cpu_blade(cuda, step):
+    """tests/_sim_driver.py's Fig 9 step (the seqlock's readers, 6 of them)
+    and its cross-structure batch_all window (one combined flush) at
+    benchmarks/run.py --smoke sizes, on a card blade and on a CPU blade:
+    every step's digests, clocks, Stats, cache counts, results and the
+    rows are equal, and the card's blade replayed its logs with K2."""
+    import _sim_driver as drv
+    from repro_torch.kernels import nvm_log
+
+    preload, ops = drv.SMOKE
+
+    def run(device):
+        ns = drv.pkg("repro_torch", device)
+        if step.startswith("fig9"):
+            out = drv.fig9(ns, "lock", 6, preload, ops, ops)
+        else:
+            out = drv.vector_cross_structure(ns, preload, max(ops, 128))
+        return out["steps"], out["rows"], ns.copies
+
+    k2 = nvm_log.apply_launches
+    on_card = run(cuda)
+    assert nvm_log.apply_launches > k2
+    assert on_card[2]["d2h"] > 0
+    on_cpu = run("cpu")
+    assert on_card[:2] == on_cpu[:2]
+
+
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "llama3.2-3b"])
 @pytest.mark.parametrize("remat", ["none", "dots"])
 def test_stacked_gradients_are_the_indexed_routes_bits_on_the_card(cuda, monkeypatch, arch,
