@@ -353,6 +353,15 @@ def _zero_routes() -> None:
         m.launches_by_route = dict.fromkeys(m.ROUTES, 0)
 
 
+def _zero_nvm_counts() -> None:
+    """Sets the blade kernels' launch counts, and by route, to zero."""
+    from repro_torch.kernels import nvm_log
+
+    nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
+    nvm_log.fletcher64_launches_by_route = dict.fromkeys(nvm_log.ROUTES, 0)
+    nvm_log.apply_launches_by_route = dict.fromkeys(nvm_log.ROUTES, 0)
+
+
 def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0):
     """(least ms, what bounds it): the largest of bytes over the memory rate,
     operations over the peak of `dtype`, and exponentials over the
@@ -2683,10 +2692,16 @@ NVM_CUT = (2000, 200)        # the 44 cells here: a fifteenth of each
 NVM_FULL = (("bptree", "rcb"), ("hashtable", "r"))  # also at Table 3's full size
 NVM_BLADE = 1 << 26          # NVMBackend's default 64 MB arena, as Table 3's blades
 NVM_DESIGN = {
-    "fletcher64_segments": "a warp a segment (a block a segment above 16 KB); words assembled "
-                           "from the two aligned words around them by a funnel shift, bytes "
-                           "past the segment masked; each lane's sums folded mod 2^32-1, then "
-                           "the warp's (and the block's) reduced sums added",
+    "fletcher64_segments": "one launch, two routes by the segment table's size: up to "
+                           "SMALL_SEGMENTS segments (SMALL_LONG of them over 16 KB) go with "
+                           "the launch as a __grid_constant__ struct, a start and a length "
+                           "in two uint32 a word, no copy; a longer table is staged in a "
+                           "kept pinned buffer. The first blocks give each segment of up "
+                           "to 16 KB a group of 4-32 lanes (by the table's mean words), the "
+                           "last blocks a longer segment each; a lane sums a contiguous run "
+                           "of words read as 16-byte aligned chunks, funnel-shifted into "
+                           "words in registers, with one mul.wide a word and no modulo, and "
+                           "folds the run mod 2^32-1 once",
     "apply_runs": "two routes by the run table's size: a table of up to SMALL_WORDS int64 "
                   "words (PARAM_BYTES of launch parameters) goes with the launch as a "
                   "__grid_constant__ struct, one launch and no copy; a warp a run finds "
@@ -2705,6 +2720,15 @@ APPLY_CASES = {
     "queue": "2003 runs of 8 or 16 bytes into distinct 64-byte nodes, as a queue x symb window",
     "overlap": "48 runs of 1-240 bytes with whole, partial and nested overlaps, in shuffled "
                "order"}
+
+
+# K1 at the shapes the blade's reboot gives it: the first call of each
+# scenario, recorded on CPU blades (the arena as the reboot handed it over)
+CHECKSUM_CASES = {
+    "reboot_log": "the 400-transaction log's reboot (nvm recovery '400-tx log, memo cleared'): "
+                  "400 bodies of 21-1440 bytes",
+    "power_loss": "the cluster's power loss mid-replay (cluster 'migration and failures'): the "
+                  "reboot's one body, 60 staged puts' 480 bytes"}
 
 
 def _nvm_fe(core, variant, cache_bytes):
@@ -3089,6 +3113,92 @@ def _calls_trace(torch, fn, calls=50, tries=3):
     return out
 
 
+def checksum_1e5(torch, gen, rng):
+    """K1's timed case: a 64 MB span on the card, 1e5 segments of 0-4096
+    bytes at odd offsets; the first megabyte all 0xFF, 1000 segments inside
+    it.  (arena, starts, lens)."""
+    arena = torch.randint(0, 256, (NVM_BLADE,), dtype=torch.uint8, device="cuda", generator=gen)
+    arena[: 1 << 20] = 0xFF
+    n = 100_000
+    lens = rng.integers(0, 4097, n)
+    starts = 2 * rng.integers(0, (NVM_BLADE - 4200) // 2, n) + 1
+    starts[:1000] = 2 * rng.integers(0, ((1 << 20) - 4200) // 2, 1000) + 1
+    return arena, starts, lens
+
+
+def checksum_inputs(case):
+    """(arena, starts, lens) of K1's first call in `case` of CHECKSUM_CASES:
+    the scenario run on CPU blades, the arena a CPU copy of the one the
+    reboot handed over, and the segments it asked for."""
+    import gc
+
+    from repro_torch.kernels import nvm_log
+
+    calls, kernel = [], nvm_log.fletcher64_segments
+
+    def recorded(arena, starts, lens):
+        if not calls:
+            calls.append((arena.clone(), np.array(starts, dtype=np.int64),
+                          np.array(lens, dtype=np.int64)))
+        return kernel(arena, starts, lens)
+    nvm_log.fletcher64_segments = recorded
+    try:
+        if case == "reboot_log":
+            _nvm_recovery_cases()["400-tx log, memo cleared"]("cpu")
+        elif case == "power_loss":
+            _cluster_failure_story("cpu")
+        else:
+            raise ValueError(f"no K1 case {case}")
+    finally:
+        nvm_log.fletcher64_segments = kernel
+    gc.collect()  # the scenario's cycles, before anything is timed
+    return calls[0]
+
+
+def _checksum_case(torch, name, floor_ms, timer):
+    """K1 at `name`'s segments, on the arena the reboot read them from:
+    bitwise against its plain version and a second run, its route, the
+    call's host ms, the launch's (CUDA events) beside the floor, and the
+    kernels, copies and aten ops of 50 calls."""
+    from repro_torch.kernels import nvm_log, ref
+
+    arena_cpu, starts, lens = checksum_inputs(name)
+    arena = arena_cpu.cuda()
+    before = dict(nvm_log.fletcher64_launches_by_route)
+    staged, stage = [0], nvm_log._staged
+
+    def counted(*args):
+        staged[0] += 1
+        return stage(*args)
+    nvm_log._staged = counted
+    try:
+        run = lambda: nvm_log.fletcher64_segments(arena, starts, lens)  # noqa: E731
+        got, again = run(), run()
+        routes = [r for r in nvm_log.ROUTES
+                  if nvm_log.fletcher64_launches_by_route[r] != before[r]]
+        s_d, l_d = (torch.from_numpy(x).cuda() for x in (starts, lens))
+        plain = lambda: ref.fletcher64_segments_reference(arena, s_d, l_d)  # noqa: E731
+        want = plain()
+        launch = nvm_log._fletcher64_launcher(arena, starts, lens, torch.empty_like(got))
+        bytes_ms, _ = bound(int(lens.sum()) + 8 * starts.size, 0.0, "float32")
+        line = {"case": CHECKSUM_CASES[name], "segments": int(starts.size),
+                "bytes": int(lens.sum()), "shortest": int(lens.min()),
+                "longest": int(lens.max()), "start_mod_16": sorted({int(x) for x in starts % 16}),
+                "route": routes[0] if len(routes) == 1 else routes,
+                "equal_plain": torch.equal(got, want), "bitwise_repeat": torch.equal(got, again),
+                "call_ms": host_ms(torch, run), "launch_ms": timer(launch, iters=100),
+                "launch_host_ms": host_ms(torch, launch), "plain_ms": host_ms(torch, plain, 100),
+                "floor_ms": floor_ms, "bytes_bound_ms": bytes_ms,
+                "bound_ms": max(bytes_ms, floor_ms),
+                "bound_by": "bytes" if bytes_ms >= floor_ms else "launch",
+                "calls_trace": _calls_trace(torch, run)}
+        line["staged"] = staged[0]
+    finally:
+        nvm_log._staged = stage
+    del arena, arena_cpu, s_d, l_d, got, again, want, launch
+    return line
+
+
 def _apply_case(torch, name, addrs, offs, lens, floor_ms):
     """K2 on `name`'s runs into a 64 MB arena and one mirror, from the log
     span at its end: bitwise against its plain version and a second run,
@@ -3138,14 +3248,8 @@ def _nvm_kernel_cases(torch):
     gen = torch.Generator(device="cuda").manual_seed(64)
     rng = np.random.default_rng(64)
     lines = {}
-    # K1: a 64 MB span, 1e5 segments of 0-4096 bytes at odd offsets; the
-    # first megabyte all 0xFF, 1000 segments inside it
-    arena = torch.randint(0, 256, (NVM_BLADE,), dtype=torch.uint8, device="cuda", generator=gen)
-    arena[: 1 << 20] = 0xFF
-    n = 100_000
-    lens = rng.integers(0, 4097, n)
-    starts = 2 * rng.integers(0, (NVM_BLADE - 4200) // 2, n) + 1
-    starts[:1000] = 2 * rng.integers(0, ((1 << 20) - 4200) // 2, 1000) + 1
+    arena, starts, lens = checksum_1e5(torch, gen, rng)
+    n = starts.size
     run = lambda: nvm_log.fletcher64_segments(arena, starts, lens)  # noqa: E731
     s_d, l_d = (torch.from_numpy(x).cuda() for x in (starts, lens))
     plain = lambda: ref.fletcher64_segments_reference(arena, s_d, l_d)  # noqa: E731
@@ -3158,7 +3262,8 @@ def _nvm_kernel_cases(torch):
         "segments": n, "bytes": int(lens.sum()), "equal_plain": torch.equal(got, want),
         "bitwise_repeat": torch.equal(got, again), "kernel_ms": timer(run),
         "launch_ms": timer(launch), "plain_ms": timer(plain, iters=3), "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by}
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "route": nvm_log.checksum_route(starts, lens), "call_ms": host_ms(torch, run, 50)}
     del arena, s_d, l_d, got, again, want, launch
     # K2: a 64 MB arena with one mirror; 1e5 runs into its first 48 MB from a
     # 16 MB span of its last, a third of them over earlier runs' bytes
@@ -3217,6 +3322,15 @@ def _nvm_kernel_cases(torch):
     lines["apply_runs"].update(param_bytes=nvm_log.PARAM_BYTES,
                                small_words=nvm_log.SMALL_WORDS, floor_ms=floor_ms,
                                at_replay_shapes=cases)
+    # K1 at the reboot's shapes: a launch a call, nothing staged or copied
+    timer = Timer(torch)
+    lines["fletcher64_segments"].update(
+        param_bytes=nvm_log.PARAM_BYTES, small_segments=nvm_log.SMALL_SEGMENTS,
+        small_long=nvm_log.SMALL_LONG,
+        floor_ms=floor_ms, at_reboot_shapes={
+            name: _checksum_case(torch, name, floor_ms, timer) for name in CHECKSUM_CASES})
+    del timer
+    torch.cuda.empty_cache()
     return lines
 
 
@@ -3228,8 +3342,7 @@ def phase_nvm(torch):
     from repro_torch.kernels import nvm_log
 
     t0 = time.perf_counter()
-    nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
-    nvm_log.apply_launches_by_route = dict.fromkeys(nvm_log.ROUTES, 0)
+    _zero_nvm_counts()
     failed = []
     steps, cpu_steps, extra, card_s, cpu_s, differ = _nvm_pair(torch, _nvm_quickstart)
     emit({"phase": "nvm", "step": "quickstart", "blade_mb": 16, "find_77": extra["find_77"],
@@ -3261,8 +3374,11 @@ def phase_nvm(torch):
     launches = {"fletcher64_segments": nvm_log.fletcher64_launches,
                 "apply_runs": nvm_log.apply_launches}
     by_route = dict(nvm_log.apply_launches_by_route)
+    k1_by_route = dict(nvm_log.fletcher64_launches_by_route)
     if not by_route["small"]:
         failed.append(f"K2's small route never launched: {by_route}")
+    if k1_by_route["large"] or not k1_by_route["small"]:  # the reboot's 400 bodies
+        failed.append(f"K1 by route {k1_by_route}: the reboot's calls take the small route")
     main_s = time.perf_counter() - t0
     by_variant = {}
     for v in NVM_VARIANTS:
@@ -3278,6 +3394,7 @@ def phase_nvm(torch):
                                                                             variant)})
     kernels = _nvm_kernel_cases(torch)
     kernels["apply_runs"]["launches_by_route"] = by_route
+    kernels["fletcher64_segments"]["launches_by_route"] = k1_by_route
     for name, k in kernels.items():
         k["launches"] = launches[name]
         if not (k["equal_plain"] and k["bitwise_repeat"]):
@@ -3293,9 +3410,17 @@ def phase_nvm(torch):
                     or not 0 < sum(kernels_run.values()) <= trace["calls"]
                     or not all("apply_small" in k for k in kernels_run))):
             failed.append(f"kernel apply_runs at {case}: {c}")
+    for case, c in kernels["fletcher64_segments"]["at_reboot_shapes"].items():
+        trace = c["calls_trace"]
+        if not (c["equal_plain"] and c["bitwise_repeat"]) or c["route"] != "small" or (
+                c["staged"] or trace["memcpy_htod"] or set(trace["aten_ops"]) - {"aten::empty"}
+                or not 0 < sum(trace["kernels"].values()) <= trace["calls"]
+                or not all("fletcher64_segments" in k for k in trace["kernels"])):
+            failed.append(f"kernel fletcher64_segments at {case}: {c}")
     emit({"phase": "nvm", "main_path_s": main_s, "seconds": time.perf_counter() - t0,
           "cut": {"preload": [NVM_TABLE3[0], NVM_CUT[0]], "ops": [NVM_TABLE3[1], NVM_CUT[1]]},
           "launches": launches, "apply_launches_by_route": by_route,
+          "fletcher64_launches_by_route": k1_by_route,
           "ms_per_op_by_variant": by_variant, "kernels": kernels,
           "ok": not failed, "failed": failed})
     if failed:
@@ -3750,8 +3875,7 @@ def phase_cluster(torch):
     from repro_torch.kernels import nvm_log
 
     t0 = time.perf_counter()
-    nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
-    nvm_log.apply_launches_by_route = dict.fromkeys(nvm_log.ROUTES, 0)
+    _zero_nvm_counts()
     torch.cuda.reset_peak_memory_stats()
     failed, seconds = [], {}
 
@@ -3794,15 +3918,19 @@ def phase_cluster(torch):
     if not all(launches.values()):
         failed.append(f"a blade kernel never launched: {launches}")
     by_route = dict(nvm_log.apply_launches_by_route)
+    k1_by_route = dict(nvm_log.fletcher64_launches_by_route)
     if not by_route["small"]:
         failed.append(f"K2's small route never launched: {by_route}")
+    if k1_by_route["large"]:  # the power loss's reboot verifies one body
+        failed.append(f"K1 by route {k1_by_route}: the reboot's calls take the small route")
     emit({"phase": "cluster", "launches": launches, "apply_launches_by_route": by_route,
+          "fletcher64_launches_by_route": k1_by_route,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "seconds_by_step": seconds, "seconds": time.perf_counter() - t0,
           "reduced": CLUSTER_REDUCED, "ok": not failed, "failed": failed})
     if failed:
         raise AssertionError(f"cluster: {failed}")
-    return dict(launches, apply_runs_by_route=by_route)
+    return dict(launches, apply_runs_by_route=by_route, fletcher64_segments_by_route=k1_by_route)
 
 
 # ---------------------------------------------------------------------- sim
@@ -3886,8 +4014,7 @@ def phase_sim(torch):
 
     t0 = time.perf_counter()
     drv = _sim_driver()
-    nvm_log.fletcher64_launches = nvm_log.apply_launches = 0
-    nvm_log.apply_launches_by_route = dict.fromkeys(nvm_log.ROUTES, 0)
+    _zero_nvm_counts()
     torch.cuda.reset_peak_memory_stats()
     failed, lines = [], []
     for figure, name, scenario, reduced in _sim_steps(drv):
@@ -3929,6 +4056,7 @@ def phase_sim(torch):
     launches = {"fletcher64_segments": nvm_log.fletcher64_launches,
                 "apply_runs": nvm_log.apply_launches}
     by_route = dict(nvm_log.apply_launches_by_route)
+    k1_by_route = dict(nvm_log.fletcher64_launches_by_route)
     if not launches["apply_runs"]:
         failed.append(f"K2 never launched: {launches}")
     by_figure = {}
@@ -3940,11 +4068,12 @@ def phase_sim(torch):
         f.update(card_ms_per_op=f["card_s"] * 1e3 / f["ops"],
                  cpu_ms_per_op=f["cpu_s"] * 1e3 / f["ops"])
     emit({"phase": "sim", "launches": launches, "apply_launches_by_route": by_route,
+          "fletcher64_launches_by_route": k1_by_route,
           "by_figure": by_figure, "seconds": time.perf_counter() - t0,
           "ok": not failed, "failed": failed})
     if failed:
         raise AssertionError(f"sim: {failed}")
-    return dict(launches, apply_runs_by_route=by_route)
+    return dict(launches, apply_runs_by_route=by_route, fletcher64_segments_by_route=k1_by_route)
 
 
 def _fail(reason: str) -> int:
@@ -4208,6 +4337,14 @@ def main(argv=None) -> int:
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "checked": True, "design": NVM_DESIGN[name],
                         "bitwise_repeat": c["bitwise_repeat"], "launch_ms": c["launch_ms"]})
+    k1 = nvm["fletcher64_segments"]  # its two routes, the reboot's shapes, calls by route
+    kernels[-2].update(case_route=k1["route"], call_ms=k1["call_ms"],
+                       param_bytes=k1["param_bytes"], small_segments=k1["small_segments"],
+                       small_long=k1["small_long"], floor_ms=k1["floor_ms"],
+                       at_reboot_shapes=k1["at_reboot_shapes"],
+                       launches_by_route={"nvm": k1["launches_by_route"],
+                                          "cluster": cluster["fletcher64_segments_by_route"],
+                                          "sim": sim["fletcher64_segments_by_route"]})
     k2 = nvm["apply_runs"]  # its two routes, the replay's shapes and each phase's calls by route
     kernels[-1].update(case_route=k2["route"], call_ms=k2["call_ms"],
                        param_bytes=k2["param_bytes"],

@@ -40,6 +40,15 @@ inputs made as `chip_smoke.py`'s kernel cases make them:
                  (`chip_smoke.host_ms`), with the route where the checkout
                  has one; and the floor, an empty kernel's launch timed
                  alike, where the checkout has one (`nvm_log.floor_launch`).
+  checksum       K1 (`nvm_log.fletcher64_segments`) at the reboot's shapes
+                 (`chip_smoke.CHECKSUM_CASES`, recorded on CPU blades) and at
+                 1e5 segments on a 64 MB span (`chip_smoke.checksum_1e5`):
+                 `call_ms` and `launch_host_ms` (the launch on a table
+                 prepared before, `_fletcher64_launcher`), medians of 1,000
+                 calls (50 at 1e5) on the host clock, each synchronised;
+                 `launch_ms`, the launch's CUDA-event time after an L2 flush
+                 (`Timer`, medians of 100, `--reps` of them); the route where
+                 the checkout has one; and the floor as for apply_runs.
 
     python3 scripts/time_kernels.py --root path/to/checkout --case train_kernels
 
@@ -75,7 +84,8 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
-CASES = ("scan_forwards", "train_kernels", "flash_forwards", "topk", "lifecycle", "apply_runs")
+CASES = ("scan_forwards", "train_kernels", "flash_forwards", "topk", "lifecycle", "apply_runs",
+         "checksum")
 # each kernel of a call whose device time is split out, by a substring of its name
 LAUNCHES = {"flash_fwd": ("flash_fwd_sm90",),
             "flash_bwd": ("bwd_prep", "bwd_dkdv", "bwd_dq", "bwd_reduce"),
@@ -234,6 +244,33 @@ def main(argv=None) -> int:
                 "route": nvm_log.route(2, addrs.size) if hasattr(nvm_log, "route") else None,
                 "call_ms": hms(torch, lambda: nvm_log.apply_runs(*args_), iters),
                 "launch_ms": hms(torch, nvm_log._apply_launcher(*args_), iters)}
+    elif args.case == "checksum":
+        from chip_smoke import CHECKSUM_CASES, checksum_1e5, checksum_inputs, host_ms as hms
+        from repro_torch.kernels import _build, nvm_log
+
+        _build.build(["nvm_log"])
+        if hasattr(nvm_log, "floor_launch"):
+            out["floor_ms"] = hms(torch, lambda: nvm_log.floor_launch(torch.device("cuda")))
+        for case in (*CHECKSUM_CASES, "1e5"):
+            if case == "1e5":
+                arena, starts, lens = checksum_1e5(torch, torch.Generator(
+                    device="cuda").manual_seed(64), np.random.default_rng(64))
+            else:
+                arena, starts, lens = checksum_inputs(case)
+                arena = arena.cuda()
+            iters = 50 if case == "1e5" else 1000
+            got = torch.empty(starts.size, dtype=torch.uint64, device="cuda")
+            launch = nvm_log._fletcher64_launcher(arena, starts, lens, got)
+            out[f"fletcher64_{case}"] = {
+                "segments": int(starts.size), "bytes": int(lens.sum()),
+                "route": (nvm_log.checksum_route(starts, lens)
+                          if hasattr(nvm_log, "checksum_route") else None),
+                "call_ms": hms(torch, lambda: nvm_log.fletcher64_segments(arena, starts, lens),
+                               iters),
+                "launch_host_ms": hms(torch, launch, iters),
+                "launch_ms": [timer(launch, 100) for _ in range(args.reps)]}
+            del arena, got, launch
+            torch.cuda.empty_cache()
     elif args.case == "topk":
         for case in ("random", "lifecycle", "ties"):
             x = topk_input(torch, case, 128256 * 3072)  # llama3.2-3b's embedding

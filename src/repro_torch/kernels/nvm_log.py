@@ -15,30 +15,47 @@ the paper puts on the blade runs there as two kernels of
   synchronous mirrors, last writer winning where runs overlap, as the serial
   loop.  Its plain version is ``ref.apply_runs_reference``.
 
-What bounds them on the H100: K1 the bytes (each body read once, at 3.35
-TB/s).  K2 is bound by bytes only at a scale the replay never gives it (1e5
-runs); a replaying op hands it 2-9 runs of 8-240 bytes (a batched window up
-to ~2,000), whose bytes take nanoseconds, so its bound is one launch, and its
-call was the host's planning around that launch.  K2 therefore has two routes
-(``route``), by the size of its run table:
+What bounds them on the H100.  Both are bound by bytes only at a scale the
+blade never gives them (1e5 segments or runs, at 3.35 TB/s).  A reboot
+hands K1 the bodies its memo misses: 400 of 21-1440 bytes after a
+400-transaction log, one of 480 after a power loss mid-replay; a replaying
+op hands K2 2-9 runs of 8-240 bytes (a batched window up to ~2,000).  Their
+bytes take nanoseconds, so their bound is one launch, and their call was the
+host's planning, allocation and copies around it.  Each kernel therefore
+takes one of two routes by the size of its table (``checksum_route``,
+``route``):
 
-* ``small``: a table that fits the kernel's parameter space (``PARAM_BYTES``,
-  ``SMALL_WORDS`` int64 words; ``small_table`` packs it) is passed by value
-  with the launch.  The call is the refusals' checks, the packing and one
-  launch: no host-to-device copy, no pinned or device allocation, no plan.
-  The kernel finds each byte's last writer itself: a byte of run i is written
-  only where no later run covers it.
-* ``large``: a longer table is planned on the host (``_shared_bytes``: which
-  bytes several runs share), staged in a pinned buffer kept per device and
-  copied to the card, where two passes settle each shared byte's owner
-  (``atomicMax`` of the run index) and copy.  The staging buffers and the
-  owner scratch are kept and grown, not allocated a call.
+* ``small``: a table that fits the kernel's parameter space (``PARAM_BYTES``)
+  is passed by value with the launch: K1's ``_pack`` packs up to
+  ``SMALL_SEGMENTS`` segments (at most ``SMALL_LONG`` of them longer than
+  ``LONG_SEGMENT``) as a start relative to the span's lowest and a length,
+  two uint32 a word; K2's ``small_table`` up to ``SMALL_WORDS`` int64 words.
+  The call is the refusals' checks, the packing and one launch: no
+  host-to-device copy, no pinned or device allocation but K1's output, no
+  plan.  K2's kernel finds each byte's last writer itself: a byte of run i
+  is written only where no later run covers it.
+* ``large``: a longer table is staged in a pinned buffer kept per device and
+  kernel (``_Staging``) and copied to the card.  K1's is int64 starts,
+  lengths and the long segments' indices; K2's is planned on the host
+  (``_shared_bytes``: which bytes several runs share), where two passes
+  settle each shared byte's owner (``atomicMax`` of the run index) and copy.
+  The staging buffers and the owner scratch are kept and grown, not
+  allocated a call.
+
+K1 is one launch on either route: its first blocks take the segments of up
+to ``LONG_SEGMENT`` bytes, a group of lanes each (32 while the table fits
+one wave of the card at that width, else 8), each group walking consecutive
+segments; the last blocks one longer segment each.  A lane reads a contiguous run of words in 16-byte aligned
+chunks, builds the unaligned words from registers by funnel shifts, and
+sums ``w`` and ``i * w`` with no modulo; each run is folded mod 2^32 - 1
+once (``RUN_WORDS``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises: nothing falls back.  ``fletcher64_launches`` and ``apply_launches``
 count the calls of each wrapper that launched its kernel (one a call,
-whatever the launches inside), ``apply_launches_by_route`` K2's calls by
-route; the plain path never adds to them.
+whatever the launches inside), ``fletcher64_launches_by_route`` and
+``apply_launches_by_route`` the calls by route; the plain path never adds
+to them.
 """
 
 from __future__ import annotations
@@ -52,19 +69,26 @@ import torch
 from . import _build
 from .ref import apply_runs_reference, fletcher64_segments_reference
 
-# segments longer than this take a block each instead of a warp
+# segments longer than this take a block each instead of a group of lanes
 LONG_SEGMENT = 16 << 10
 
-# K2's small route: the kernel's parameters hold 32,764 bytes (CUDA >= 12.1
-# on Volta and later): the source pointer and the two int32 counts, then the
-# run table in int64 words
+# the small routes: the kernel's parameters hold 32,764 bytes (CUDA >= 12.1
+# on Volta and later).  K2's: the source pointer and the two int32 counts,
+# then the run table in int64 words.  K1's: the span's and the output's
+# pointers, four int32, the long segments' uint16 indices, then a word a
+# segment
 PARAM_BYTES = 32764
 SMALL_WORDS = (PARAM_BYTES - 16) // 8
+SMALL_LONG = 64
+SMALL_SEGMENTS = (PARAM_BYTES - 32 - 2 * SMALL_LONG) // 8
+# the most words a lane of K1 sums before it folds them mod 2^32 - 1
+RUN_WORDS = 1 << 14
 ROUTES = ("small", "large")
-# up to this many runs the refusals' checks run on Python ints
+# up to this many runs (K2) or segments (K1) the checks run on Python ints
 _FEW = 64
 
 fletcher64_launches = 0
+fletcher64_launches_by_route = dict.fromkeys(ROUTES, 0)
 apply_launches = 0
 apply_launches_by_route = dict.fromkeys(ROUTES, 0)
 
@@ -73,8 +97,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("nvm_log")
     if lib.repro_apply_runs.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_fletcher64_segments.argtypes = [p, ll, p, p, p, i, p, i, p, p]
-        lib.repro_fletcher64_segments.restype = i
+        lib.repro_fletcher64_small.argtypes = [p, i, p, p, i, p]
+        lib.repro_fletcher64_small.restype = i
+        lib.repro_fletcher64_large.argtypes = [p, ll, i, p, p, i, p]
+        lib.repro_fletcher64_large.restype = i
+        lib.repro_fletcher64_layout.argtypes = [p]
+        lib.repro_fletcher64_layout.restype = None
+        layout = (ctypes.c_longlong * 4)()
+        lib.repro_fletcher64_layout(layout)
+        if tuple(layout) != (SMALL_SEGMENTS, SMALL_LONG, LONG_SEGMENT, RUN_WORDS):
+            raise RuntimeError(f"nvm_log: the kernel's K1 layout is {tuple(layout)}, the "
+                               f"wrapper's {(SMALL_SEGMENTS, SMALL_LONG, LONG_SEGMENT, RUN_WORDS)}")
         lib.repro_apply_small.argtypes = [p, i, i, p, i, p]
         lib.repro_apply_small.restype = i
         lib.repro_apply_floor.argtypes = [i, p]
@@ -100,12 +133,6 @@ def _int64(x) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=np.int64).reshape(-1)
 
 
-def _to(dev: torch.device, *arrays: np.ndarray) -> torch.Tensor:
-    """The arrays as one int64 tensor on `dev`, end to end: one copy."""
-    host = torch.from_numpy(np.concatenate(arrays) if len(arrays) > 1 else arrays[0])
-    return host.to(dev) if dev.type == "cpu" else host.pin_memory().to(dev, non_blocking=True)
-
-
 def _check_arena(arena: torch.Tensor, name: str) -> None:
     if arena.dtype != torch.uint8 or arena.dim() != 1 or not arena.is_contiguous():
         raise ValueError(f"{name}: arenas must be contiguous 1-D uint8 tensors; got "
@@ -120,7 +147,8 @@ def fletcher64_segments(arena: torch.Tensor, starts, lens) -> torch.Tensor:
     if starts.shape != lens.shape:
         raise ValueError("fletcher64_segments: starts and lens differ in length")
     n = starts.size
-    if n and (lens.min() < 0 or starts.min() < 0 or (starts + lens).max() > arena.numel()):
+    span = _span(starts, lens) if n else None
+    if n and (span[2] < 0 or span[0] < 0 or span[1] > arena.numel()):
         raise ValueError("fletcher64_segments: a segment lies outside the arena")
     dev = arena.device
     if dev.type == "cpu":
@@ -129,35 +157,93 @@ def fletcher64_segments(arena: torch.Tensor, starts, lens) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"fletcher64_segments: unsupported device {dev}")
     out = torch.empty(n, dtype=torch.uint64, device=dev)
-    if n == 0:
-        return out
-    if arena.data_ptr() % 4:
-        raise ValueError("fletcher64_segments: the arena must be 4-byte aligned")
-    _fletcher64_launcher(arena, starts, lens, out)()
+    if n:
+        _fletcher64_launcher(arena, starts, lens, out, span)()
     return out
 
 
+def _span(starts: np.ndarray, lens: np.ndarray) -> Tuple[int, int, int]:
+    """(lowest start, highest end, shortest length) of a non-empty table; on
+    Python ints for a few segments, on numpy arrays for more."""
+    if starts.size <= _FEW:
+        s, n = starts.tolist(), lens.tolist()
+        return min(s), max([a + b for a, b in zip(s, n)]), min(n)
+    return int(starts.min()), int((starts + lens).max()), int(lens.min())
+
+
+def _pack(starts: np.ndarray, lens: np.ndarray, span=None):
+    """(lo, table): the small route's segment table, uint64 [n], segment k's
+    start less ``lo`` (the lowest start) in the low 32 bits and its length
+    in the high 32; or (None, why the table does not fit the launch's
+    parameters or a value its 32 bits).  `span`: ``_span``'s, where the
+    caller has it."""
+    n = starts.size
+    if not 0 < n <= SMALL_SEGMENTS:
+        return None, f"{n} segments; the launch's parameters hold 1 to {SMALL_SEGMENTS}"
+    lo, hi, shortest = span or _span(starts, lens)
+    if shortest < 0 or hi - lo >= 1 << 32:
+        return None, ("a length is negative, or an end lies 2^32 bytes or more past the "
+                      "lowest start")
+    if n <= _FEW:
+        s, ln = starts.tolist(), lens.tolist()
+        nlong = sum([x > LONG_SEGMENT for x in ln])
+    else:
+        nlong = int(np.count_nonzero(lens > LONG_SEGMENT))
+    if nlong > SMALL_LONG:
+        return None, f"{nlong} segments longer than {LONG_SEGMENT} bytes, over {SMALL_LONG}"
+    if n <= _FEW:
+        return lo, np.array([a - lo | b << 32 for a, b in zip(s, ln)], dtype=np.uint64)
+    table = np.empty((n, 2), dtype=np.uint32)
+    table[:, 0] = starts - lo
+    table[:, 1] = lens
+    return lo, table.view(np.uint64).reshape(n)
+
+
+def checksum_route(starts: np.ndarray, lens: np.ndarray) -> str:
+    """K1's route for a segment table: "small" where ``_pack`` packs it into
+    the launch's parameters (1 to ``SMALL_SEGMENTS`` segments, at
+    most ``SMALL_LONG`` of them longer than ``LONG_SEGMENT``, every end less
+    than 2^32 bytes past the lowest start), else "large"."""
+    return "large" if _pack(_int64(starts), _int64(lens))[0] is None else "small"
+
+
+def _k1_launched(route_: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"fletcher64_segments: kernel launch failed with cudaError {err}")
+    global fletcher64_launches
+    fletcher64_launches += 1
+    fletcher64_launches_by_route[route_] += 1
+
+
 def _fletcher64_launcher(arena: torch.Tensor, starts: np.ndarray, lens: np.ndarray,
-                         out: torch.Tensor) -> Callable[[], None]:
-    """The host's part of K1 (the segment table on the card), and a call
+                         out: torch.Tensor, span=None) -> Callable[[], None]:
+    """The host's part of K1 on the route of the table's size, and a call
     that launches the kernel on it (so a timer can take the launch alone)."""
-    dev, n = arena.device, starts.size
+    dev, base = arena.device, arena.data_ptr()
+    lo, table = _pack(starts, lens, span)
+    if lo is not None:
+        def launch() -> None:
+            _k1_launched("small", _lib().repro_fletcher64_small(
+                table.ctypes.data, table.size, base + lo, out.data_ptr(), dev.index,
+                _stream(dev)))
+        return launch
+    n = starts.size
     long_ = lens > LONG_SEGMENT
-    widx = np.flatnonzero(~long_)
-    bidx = np.flatnonzero(long_)
-    table = _to(dev, starts, lens, widx, bidx)
+    nlong = int(np.count_nonzero(long_))
+    st, stream = _staged(_K1_STAGING, dev, 2 * n + nlong)
+    host = st.host.numpy()
+    host[:n] = starts
+    host[n:2 * n] = lens
+    if nlong:
+        host[2 * n:2 * n + nlong] = np.flatnonzero(long_)
+    st.table[:2 * n + nlong].copy_(st.host[:2 * n + nlong], non_blocking=True)
+    st.copied.record(stream)
+    table = st.table
 
     def launch() -> None:
-        base = table.data_ptr()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _lib().repro_fletcher64_segments(
-                arena.data_ptr(), arena.numel(), base, base + 8 * n, base + 16 * n, widx.size,
-                base + 8 * (2 * n + widx.size), bidx.size, out.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"fletcher64_segments: kernel launch failed with cudaError {err}")
-        global fletcher64_launches
-        fletcher64_launches += 1
+        _k1_launched("large", _lib().repro_fletcher64_large(
+            table.data_ptr(), n, nlong, base, out.data_ptr(), dev.index, stream.cuda_stream))
+        st.done.record(stream)
     return launch
 
 
@@ -314,11 +400,11 @@ def _small_launcher(src: torch.Tensor, table: np.ndarray, ndst: int) -> Callable
 
 
 class _Staging:
-    """The large route's buffers on one device, kept and grown: the pinned
-    host copy of the table, the table on the card, the owner scratch.  The
-    host copy is rewritten only once the copy out of it has run (`copied`);
-    the card's buffers are used in stream order, a call on another stream
-    first waiting for the last launch (`done`)."""
+    """A large route's buffers on one device, kept and grown (one set for
+    each kernel): the pinned host copy of the table, the table on the card,
+    K2's owner scratch.  The host copy is rewritten only once the copy out of
+    it has run (`copied`); the card's buffers are used in stream order, a
+    call on another stream first waiting for the last launch (`done`)."""
 
     def __init__(self, dev: torch.device):
         self.host = torch.empty(0, dtype=torch.int64)
@@ -329,6 +415,24 @@ class _Staging:
 
 
 _STAGING: Dict[torch.device, _Staging] = {}
+_K1_STAGING: Dict[torch.device, _Staging] = {}
+
+
+def _staged(staging: Dict[torch.device, _Staging], dev: torch.device, words: int):
+    """(`dev`'s buffers of `staging`, holding at least `words` int64 words and
+    free to rewrite, and the current stream, which has waited for their last
+    launch)."""
+    st = staging.get(dev)
+    if st is None:
+        st = staging[dev] = _Staging(dev)
+    stream = torch.cuda.current_stream(dev)
+    st.copied.synchronize()
+    stream.wait_event(st.done)
+    if st.host.numel() < words:
+        size = 1 << (words - 1).bit_length()
+        st.host = torch.empty(size, dtype=torch.int64, pin_memory=True)
+        st.table = torch.empty(size, dtype=torch.int64, device=dev)
+    return st, stream
 
 
 def _large_launcher(ptrs: List[int], src: torch.Tensor, addrs: np.ndarray, offs: np.ndarray,
@@ -337,17 +441,8 @@ def _large_launcher(ptrs: List[int], src: torch.Tensor, addrs: np.ndarray, offs:
     and a launch of the two passes on it (on the table staged last)."""
     dev, n, ndst = src.device, addrs.size, len(ptrs)
     comp, count = _shared_bytes(addrs, lens)
-    st = _STAGING.get(dev)
-    if st is None:
-        st = _STAGING[dev] = _Staging(dev)
-    stream = torch.cuda.current_stream(dev)
     words = ndst + 4 * n
-    st.copied.synchronize()
-    stream.wait_event(st.done)
-    if st.host.numel() < words:
-        size = 1 << (words - 1).bit_length()
-        st.host = torch.empty(size, dtype=torch.int64, pin_memory=True)
-        st.table = torch.empty(size, dtype=torch.int64, device=dev)
+    st, stream = _staged(_STAGING, dev, words)
     if st.owner.numel() < count:
         st.owner = torch.empty(1 << (count - 1).bit_length(), dtype=torch.int32, device=dev)
     np.concatenate((ptrs, addrs, offs, lens, comp), out=st.host.numpy()[:words])

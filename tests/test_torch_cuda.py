@@ -929,9 +929,27 @@ def _fletcher64_host(data: bytes) -> int:
     return (s2 << 32) | s1
 
 
+def _log_bodies(rng, n, sizes, at):
+    """(starts, lens) of `n` transaction bodies laid out as the blade's log
+    writes them from offset `at`: a 13-byte header before each body, a
+    9-byte commit record after it; each body 13 bytes a write of `sizes`."""
+    starts, lens, pos = [], [], at
+    for _ in range(n):
+        body = sum(13 + int(rng.choice(sizes)) for _ in range(int(rng.integers(1, 9))))
+        starts.append(pos + 13)
+        lens.append(body)
+        pos += 13 + body + 9
+    return np.array(starts), np.array(lens)
+
+
 def test_fletcher64_segments_kernel_matches_plain(cuda):
     """K1 at unaligned starts, empty and short segments, long ones (a block
-    each), all-0xFF bodies and a segment ending at the arena's last byte."""
+    each) in the same launch, all-0xFF bodies and a segment ending at the
+    arena's last byte; on both routes (a table past SMALL_SEGMENTS, and one
+    with more than SMALL_LONG long segments, take the large one); and at the
+    reboot's shapes (400 bodies of a log, one body of 480 bytes) on the small
+    route.  Every call is one launch, bitwise the plain version and a second
+    call."""
     from repro_torch.kernels import nvm_log
 
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -942,16 +960,34 @@ def test_fletcher64_segments_kernel_matches_plain(cuda):
     lens = [0, 1, 2, 3, 7, 70001, 70000, 40000, 7, 1, 0, 4]
     starts += rng.integers(0, (1 << 20) - 5000, 500).tolist()
     lens += rng.integers(0, 4097, 500).tolist()
-    c = nvm_log.fletcher64_launches
-    got = nvm_log.fletcher64_segments(arena, starts, lens)
-    assert nvm_log.fletcher64_launches == c + 1
-    want = ref.fletcher64_segments_reference(arena, torch.tensor(starts, device=cuda),
-                                             torch.tensor(lens, device=cuda))
+    many = rng.integers(0, (1 << 20) - 20000, 90)
+    log_starts, log_lens = _log_bodies(rng, 400, [8, 24, 64, 256], 53248)
+    cases = {"mixed": (starts, lens, "small"),
+             "past SMALL_SEGMENTS": (rng.integers(0, (1 << 20) - 5000, 6000),
+                                     rng.integers(0, 4097, 6000), "large"),
+             "past SMALL_LONG": (many, np.where(np.arange(90) % 9, 16385 + many % 3000, 33),
+                                 "large"),
+             "reboot: 400-tx log": (log_starts, log_lens, "small"),
+             "reboot: power loss": ([398353], [480], "small")}
     host = arena.cpu().numpy().tobytes()
-    assert got.tolist() == want.tolist()
-    assert got.tolist()[:12] == [_fletcher64_host(host[s:s + n])
-                                 for s, n in zip(starts[:12], lens[:12])]
-    assert nvm_log.fletcher64_segments(arena, starts, lens).tolist() == got.tolist()
+    for name, (s, n, route) in cases.items():
+        c, by = nvm_log.fletcher64_launches, dict(nvm_log.fletcher64_launches_by_route)
+        got = nvm_log.fletcher64_segments(arena, s, n)
+        assert nvm_log.fletcher64_launches == c + 1, name
+        assert {r: nvm_log.fletcher64_launches_by_route[r] - by[r] for r in nvm_log.ROUTES} == {
+            r: int(r == route) for r in nvm_log.ROUTES}, name
+        want = ref.fletcher64_segments_reference(arena, torch.tensor(s, device=cuda),
+                                                 torch.tensor(n, device=cuda))
+        assert got.tolist() == want.tolist(), name
+        k = min(12, len(s))
+        assert got.tolist()[:k] == [_fletcher64_host(host[a:a + m])
+                                    for a, m in zip(list(s)[:k], list(n)[:k])], name
+        assert nvm_log.fletcher64_segments(arena, s, n).tolist() == got.tolist(), name
+    # a view at an odd address: the kernel aligns its chunks in the address space
+    view = arena[3:]
+    got = nvm_log.fletcher64_segments(view, starts[:8], lens[:8])
+    assert got.tolist() == [_fletcher64_host(host[3 + a:3 + a + m])
+                            for a, m in zip(starts[:8], lens[:8])]
 
 
 @pytest.mark.parametrize("mirrors", [0, 2])
