@@ -1,0 +1,11 @@
+"""prefill_mfu: the benchmark's count of the window's prefill operations
+(``yardstick.prefill_flops``) over the window, as a share of the card's
+bf16 peak, in percent."""
+
+from bench.yardstick import PEAK_FLOPS
+
+
+def read(run):
+    if run.entry != "serve" or run.window_s <= 0:
+        return None
+    return 100.0 * run.model_flops / run.window_s / PEAK_FLOPS["bfloat16"]
