@@ -1,5 +1,6 @@
 """Observability for the rNVM simulator: sim-time tracing, latency
-histograms, metrics export, and wall-clock profiling.
+histograms, metrics export, and wall-clock profiling; spans on the model
+path.
 
 Everything hangs off one module-global :class:`ObsSession`:
 
@@ -16,6 +17,16 @@ session is active the check is one module-global read and everything else
 costs nothing — per-op latency histograms are the only always-on piece, and
 they live on the front-end objects themselves (``FrontEnd.op_hist``), not in
 the session.
+
+The model path (the train step, the serving engine) opens ``obs.span``s at
+its phase boundaries and counts at the same boundaries with ``obs.count``.
+A session started with ``spans=True`` records them (so does a running
+``torch.profiler``, whose trace then shows each span as a host operation)
+and writes them out with ``export_spans``:
+
+    with obs.observe(spans=True) as sess:
+        ...train steps, generate calls...
+        sess.export_spans("spans.json")        # trace_event, device ms in args
 
 Objects that die before export (benchmarks build a fresh cluster per panel)
 fold their counters and histograms into session-level accumulators via
@@ -44,15 +55,17 @@ __all__ = [
     "count",
     "observe",
     "session",
+    "span",
     "start",
     "stop",
 ]
 
 
 class ObsSession:
-    def __init__(self, trace: bool = False, metrics: bool = False):
+    def __init__(self, trace: bool = False, metrics: bool = False, spans: bool = False):
         self.tracer: Optional[Tracer] = Tracer() if trace else None
         self.metrics = metrics
+        self.spans = spans
         #: session-level event counters (migrations, failovers, revocations)
         self.counters: Dict[str, float] = {}
         self._live_fes: List[weakref.ref] = []
@@ -71,6 +84,8 @@ class ObsSession:
         if metrics:
             _profile.reset()
             _profile.enable()
+        if spans:
+            _profile.spans_on()
 
     # -------------------------------------------------------- registration
     def register_frontend(self, fe) -> None:
@@ -281,6 +296,13 @@ class ObsSession:
             raise RuntimeError("session was started without trace=True")
         self.tracer.export_json(path)
 
+    def export_spans(self, path: str) -> None:
+        """The model path's spans kept so far, as trace_event JSON (one
+        ``model path`` track, host times from the first span's start)."""
+        tracer = Tracer()
+        _profile.to_tracer(tracer)
+        tracer.export_json(path)
+
     def export_metrics(self, path: str) -> str:
         """Write Prometheus text at ``path`` plus a JSON sibling; returns
         the JSON path."""
@@ -299,9 +321,9 @@ def session() -> Optional[ObsSession]:
     return _SESSION
 
 
-def start(trace: bool = False, metrics: bool = False) -> ObsSession:
+def start(trace: bool = False, metrics: bool = False, spans: bool = False) -> ObsSession:
     global _SESSION
-    _SESSION = ObsSession(trace=trace, metrics=metrics)
+    _SESSION = ObsSession(trace=trace, metrics=metrics, spans=spans)
     return _SESSION
 
 
@@ -311,12 +333,14 @@ def stop() -> Optional[ObsSession]:
     _SESSION = None
     if s is not None and s.metrics:
         _profile.disable()
+    if s is not None and s.spans:
+        _profile.spans_off()
     return s
 
 
 @contextmanager
-def observe(trace: bool = False, metrics: bool = False):
-    s = start(trace=trace, metrics=metrics)
+def observe(trace: bool = False, metrics: bool = False, spans: bool = False):
+    s = start(trace=trace, metrics=metrics, spans=spans)
     try:
         yield s
     finally:
@@ -324,7 +348,12 @@ def observe(trace: bool = False, metrics: bool = False):
 
 
 def count(name: str, n: float = 1) -> None:
-    """Bump a session-level event counter; free when no session is active."""
+    """Bump a session-level event counter, and the open root span's count of
+    the same name; free when no session is active and no span is open."""
     s = _SESSION
     if s is not None:
         s.counters[name] = s.counters.get(name, 0) + n
+    _profile.note(name, n)
+
+
+span = _profile.span

@@ -3,7 +3,9 @@
 Tracks map to Chrome's (pid, tid) plane: one *process* per track kind
 (front-ends, blades/links, cluster control) and one *thread* per simulated
 node — so Perfetto renders one lane per front-end, one per blade link, and
-one for cluster-level control events.
+one for cluster-level control events.  The model path's spans
+(``profile.to_tracer``) take a process of their own, ``model``, on the
+host's wall clock.
 
 All spans are emitted as complete events ("ph":"X") at their *end*: the
 instrumentation records the start clock, runs the instrumented region, then
@@ -23,8 +25,8 @@ import json
 from typing import Dict, List, Optional, Tuple
 
 # process ids per track kind (Chrome groups threads under processes)
-_PIDS = {"frontend": 1, "blade": 2, "cluster": 3}
-_PID_NAMES = {1: "front-ends", 2: "blades", 3: "cluster"}
+_PIDS = {"frontend": 1, "blade": 2, "cluster": 3, "model": 4}
+_PID_NAMES = {1: "front-ends", 2: "blades", 3: "cluster", 4: "model path"}
 
 
 class Track:

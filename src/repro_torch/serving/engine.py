@@ -10,6 +10,12 @@ Batching model: fixed decode slots; a `generate` call admits up to
 slots decode in lock-step with per-sequence EOS masking.  The engine runs
 on the card unless it is given ``device="cpu"``.
 
+Each ``generate`` call is an ``obs`` span, ``serve.generate`` (attributes:
+batch, slots, prompt length, new tokens; counts ``serve.decode_steps``, the
+``decode_step`` calls, and ``serve.decode_steps_unused``, those whose logits
+no token is taken from), around ``serve.prefill``, one
+``serve.decode_step`` a call (its index; ``used``) and ``serve.copy_out``.
+
 On a mesh (``ServeEngine(model, params, cfg, rules, mesh)``) the params are
 placed by ``rules``, the prompts and each step's tokens are sharded on the
 batch axes, the caches are DTensors placed by leaf name, and every rank
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import obs
 from ..device import mesh_device, resolve_device
 from ..models.model import DecoderLM
 from ..models.params import make_shardings, place, placements_of, shard
@@ -114,19 +121,23 @@ class ServeEngine:
             prompts = np.concatenate([prompts, np.zeros((pad, S0), prompts.dtype)], 0)
         if not cfg.greedy and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        with torch.inference_mode():
+        with torch.inference_mode(), obs.span("serve.generate", self.device) as sp:
+            if sp:
+                sp.attrs.update(batch=B, slots=cfg.batch_slots, prompt_len=S0,
+                                new_tokens=cfg.max_new_tokens)
             toks = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
-            t0 = time.perf_counter()
-            logits, cache = self.model.prefill(self.params, {"tokens": self._tokens(toks)},
-                                               self.rules, self.mesh)
-            logits = _whole(logits)
-            finite = torch.isfinite(logits).all()
-            _sync(self.device)
-            t1 = time.perf_counter()
+            with obs.span("serve.prefill"):
+                t0 = time.perf_counter()
+                logits, cache = self.model.prefill(self.params, {"tokens": self._tokens(toks)},
+                                                   self.rules, self.mesh)
+                logits = _whole(logits)
+                finite = torch.isfinite(logits).all()
+                _sync(self.device)
+                t1 = time.perf_counter()
             out = [toks]
             done = torch.zeros((cfg.batch_slots,), dtype=torch.bool, device=self.device)
             steps = 0
-            for _ in range(cfg.max_new_tokens):
+            for i in range(cfg.max_new_tokens):
                 if cfg.greedy:
                     nxt = torch.argmax(logits, dim=-1)
                 else:
@@ -139,13 +150,22 @@ class ServeEngine:
                 steps += 1
                 if cfg.eos_id >= 0 and bool(done.all()):
                     break
-                logits, cache = self.model.decode_step(self.params, cache, self._tokens(nxt),
-                                                       self.rules, self.mesh)
-                logits = _whole(logits)
+                used = i + 1 < cfg.max_new_tokens  # a later token is taken from its logits
+                with obs.span("serve.decode_step") as dsp:
+                    if dsp:
+                        dsp.attrs.update(index=i, used=used)
+                    logits, cache = self.model.decode_step(self.params, cache,
+                                                           self._tokens(nxt), self.rules,
+                                                           self.mesh)
+                    logits = _whole(logits)
+                obs.count("serve.decode_steps")
+                if not used:
+                    obs.count("serve.decode_steps_unused")
                 finite &= torch.isfinite(logits).all()
             _sync(self.device)
             t2 = time.perf_counter()
-            tokens = torch.cat(out, dim=1)[:B].to(torch.int32).cpu().numpy()
+            with obs.span("serve.copy_out"):
+                tokens = torch.cat(out, dim=1)[:B].to(torch.int32).cpu().numpy()
         return tokens, {"decode_steps": steps, "version": self.version,
                         "prefill_s": t1 - t0, "decode_s": t2 - t1,
                         "logits_finite": bool(finite)}

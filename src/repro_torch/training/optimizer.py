@@ -28,6 +28,9 @@ row and column means are local sums all-reduced over the mesh dims that
 shard the reduced dim, divided by its full size.  The updated parameter goes
 back to its own placements.  On a mesh whose dims are all of size 1 every
 step is the plain path's, bit for bit.
+
+``apply_opt`` is the ``obs`` span ``train.optimizer`` (attribute: the leaves
+updated), the global norm inside it ``train.grad_norm``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from .. import obs
 from ..models.spmd import split_dims
 from ..tree import flatten_named, tree_map
 
@@ -194,13 +198,22 @@ def apply_opt(params: Tree, grads: List[torch.Tensor], state: Tree, cfg: OptConf
     flat_s = [s for _, s in flatten_named(state, is_leaf=_is_moments)]
     if not (len(flat_p) == len(grads) == len(flat_s)):
         raise ValueError(f"{len(flat_p)} params, {len(grads)} grads, {len(flat_s)} states")
+    with obs.span("train.optimizer", flat_p[0] if flat_p else None) as sp:
+        if sp:
+            sp.attrs["leaves"] = len(flat_p)
+        return _apply(flat_p, grads, flat_s, cfg, step)
+
+
+def _apply(flat_p: List[torch.Tensor], grads: List[torch.Tensor], flat_s: List[dict],
+           cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     with torch.no_grad():
         for i, (g, s) in enumerate(zip(grads, flat_s)):
             if isinstance(g, DTensor):  # each gradient on its moments' placements
                 pl = s["m"].placements
                 grads[i] = g if tuple(g.placements) == tuple(pl) else \
                     g.redistribute(g.device_mesh, pl)
-    gnorm = global_norm(grads)
+    with obs.span("train.grad_norm"):
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = step.to_local() if isinstance(step, DTensor) else step
     t = step.float() + 1.0

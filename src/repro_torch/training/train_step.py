@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import obs
 from ..models.model import DecoderLM
 from ..models.params import ParamSpec, make_shardings, placements_of
 from ..tree import flatten_named, tree_map, tree_map_named
@@ -124,17 +125,32 @@ def make_train_step(model: DecoderLM, tcfg: TrainConfig, rules: Dict = None, mes
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
     ``loss`` and ``grad_norm`` are 0-d tensors on the state's device."""
 
-    def value_and_grad(leaves: List[Tuple[str, torch.Tensor]], params: Tree, batch
-                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def value_and_grad(leaves: List[Tuple[str, torch.Tensor]], params: Tree, batch,
+                       micro: int = 0) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         with torch.enable_grad():
             live = {name: p.detach().requires_grad_(True) for name, p in leaves}
-            loss = model.loss(tree_map_named(lambda name, _: live[name], params), batch,
-                              rules, mesh)
-            grads = torch.autograd.grad(loss, list(live.values()))
+            with obs.span("train.forward") as sp:
+                if sp:
+                    sp.attrs["micro"] = micro
+                loss = model.loss(tree_map_named(lambda name, _: live[name], params), batch,
+                                  rules, mesh)
+            with obs.span("train.backward") as sp:
+                if sp:
+                    sp.attrs["micro"] = micro
+                grads = torch.autograd.grad(loss, list(live.values()))
         loss = loss.detach()
         return (loss.full_tensor() if isinstance(loss, DTensor) else loss), list(grads)
 
     def train_step(state, batch):
+        step = state["step"]
+        step = step.to_local() if isinstance(step, DTensor) else step
+        with obs.span("train.step", step) as sp:
+            if sp:
+                sp.attrs["step"] = step
+            obs.count("train.tokens", batch["tokens"].numel())
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         leaves = flatten_named(params)
         if tcfg.accum_steps > 1:
@@ -147,7 +163,7 @@ def make_train_step(model: DecoderLM, tcfg: TrainConfig, rules: Dict = None, mes
             for i in range(n):
                 mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
                       for k, v in batch.items()}
-                l_i, g_i = value_and_grad(leaves, params, mb)
+                l_i, g_i = value_and_grad(leaves, params, mb, i)
                 loss = loss + l_i / n
                 grads = [a + g.float() / n for a, g in zip(grads, g_i)]
                 del g_i
@@ -156,7 +172,8 @@ def make_train_step(model: DecoderLM, tcfg: TrainConfig, rules: Dict = None, mes
 
         if tcfg.grad_topk_frac > 0:
             res = [r for _, r in flatten_named(state["residual"])]
-            grads = _sparsify(grads, res, tcfg.grad_topk_frac)
+            with obs.span("train.sparsify"):
+                grads = _sparsify(grads, res, tcfg.grad_topk_frac)
         gnorm = apply_opt(params, grads, state["opt"], tcfg.opt, state["step"])
         state["step"] = state["step"] + 1
         return state, {"loss": loss, "grad_norm": gnorm}

@@ -1377,3 +1377,49 @@ def _shardings(specs, mesh, rules):
     from repro_torch.models.params import make_shardings
 
     return make_shardings(specs, mesh, rules)
+
+
+def test_optimizer_span_encloses_its_kernels_on_the_profilers_clock(cuda):
+    """One Adafactor ``apply_opt`` (falcon-mamba-7b's settings) on two of
+    its stacked leaves, cut to 2 layers, and a norm, under a torch.profiler
+    that records the card alone, as a traced pass does: the spans record
+    there, and ``train.optimizer``'s device interval, put on the host clock
+    by the recording's anchor, encloses the kernels the profiler saw, all
+    launched inside the span, to within 50 µs."""
+    import torch.autograd.profiler as torch_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import profile as spans
+    from repro_torch.training.optimizer import apply_opt, init_opt_state
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {"in_proj": _randn(gen, (2, 4096, 16384), torch.bfloat16),
+              "norm": _randn(gen, (4096,), torch.bfloat16),
+              "out_proj": _randn(gen, (2, 8192, 4096), torch.bfloat16)}
+    cfg = OptConfig(kind="adafactor", lr=1e-3, b2=0.95, momentum_dtype="bfloat16")
+    state = init_opt_state(params, cfg)
+    step = torch.zeros((), dtype=torch.int32, device=cuda)
+
+    def grads():
+        return [_randn(gen, p.shape, torch.bfloat16) for _, p in flatten_named(params)]
+
+    apply_opt(params, grads(), state, cfg, step)  # warm: the allocator's blocks
+    g = grads()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        on = torch_profiler._is_profiler_enabled
+        apply_opt(params, g, state, cfg, step)
+        torch.cuda.synchronize()
+    assert on
+    opt = [s for s in spans.spans() if s.name == "train.optimizer"][-1]
+    norm = [s for s in spans.spans() if s.name == "train.grad_norm"][-1]
+    assert opt.parent is None and norm.parent == opt.id and opt.attrs == {"leaves": 3}
+    base = prof.profiler.kineto_results.trace_start_ns()
+    kernels = [(base + e.time_range.start * 1e3, base + e.time_range.end * 1e3)
+               for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    assert len(kernels) > 20
+    first, last = min(a for a, _ in kernels), max(b for _, b in kernels)
+    assert opt.d0 <= first + 50e3 and opt.d1 >= last - 50e3, (
+        (first - opt.d0) / 1e3, (opt.d1 - last) / 1e3)
+    assert opt.d0 - 1e3 <= norm.d0 <= norm.d1 <= opt.d1 + 1e3  # nested on the card too
+    assert opt.t0 <= opt.d0 + 50e3  # the card begins the span's work after the host does
